@@ -1,0 +1,324 @@
+"""Immutable time-sorted COO storage and lightweight graph views (paper §4).
+
+``DGData`` owns the event arrays (struct-of-arrays, time-sorted, with the
+timestamp array doubling as a binary-search index). ``DGraph`` is a
+lightweight *view*: a (storage, t_lo, t_hi, granularity) tuple that is O(1)
+to create and concurrency-safe because the storage is immutable.
+
+Root storage lives in host numpy; batches are moved to the device by the
+hook pipeline (``DeviceTransferHook``). Host-only numpy copy of
+``repro.core.graph`` (bit-equal); the CSV adapter, the DTDG
+``SnapshotTensor`` view, the out-of-core store adapters and discretization
+are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.granularity import TimeDelta
+
+
+def _as_int64(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, dtype=np.int64))
+
+
+def _as_f32(x) -> Optional[np.ndarray]:
+    if x is None:
+        return None
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class DGData:
+    """Immutable temporal-graph storage.
+
+    Edge events:  ``(edge_t[i], src[i], dst[i], edge_feats[i])`` sorted by t.
+    Node events:  ``(node_t[j], node_ids[j], node_feats[j])`` sorted by t.
+    ``static_node_feats`` is the optional ``X in R^{n x d_static}``.
+    """
+
+    src: np.ndarray
+    dst: np.ndarray
+    edge_t: np.ndarray
+    edge_feats: Optional[np.ndarray] = None
+    node_ids: Optional[np.ndarray] = None
+    node_t: Optional[np.ndarray] = None
+    node_feats: Optional[np.ndarray] = None
+    static_node_feats: Optional[np.ndarray] = None
+    granularity: TimeDelta = dataclasses.field(default_factory=TimeDelta.event)
+    num_nodes: int = 0
+    # Global index of this storage's first edge event in its root storage
+    # (0 for unsliced data; set by ``slice_events``). Lets loaders emit
+    # *global* event ids for sliced splits, so edge-feature lookups keyed by
+    # eid stay correct across train/val/test iteration.
+    eid_offset: int = 0
+
+    # ------------------------------------------------------------------
+    # Construction
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_arrays(
+        cls,
+        src,
+        dst,
+        edge_t,
+        edge_feats=None,
+        node_ids=None,
+        node_t=None,
+        node_feats=None,
+        static_node_feats=None,
+        granularity: TimeDelta | str = "s",
+        num_nodes: Optional[int] = None,
+    ) -> "DGData":
+        src, dst, edge_t = _as_int64(src), _as_int64(dst), _as_int64(edge_t)
+        if not (len(src) == len(dst) == len(edge_t)):
+            raise ValueError("src/dst/edge_t length mismatch")
+        edge_feats = _as_f32(edge_feats)
+        if edge_feats is not None and len(edge_feats) != len(src):
+            raise ValueError("edge_feats length mismatch")
+
+        # Stable sort by timestamp preserves intra-timestamp event order.
+        order = np.argsort(edge_t, kind="stable")
+        src, dst, edge_t = src[order], dst[order], edge_t[order]
+        if edge_feats is not None:
+            edge_feats = edge_feats[order]
+
+        if node_ids is not None:
+            node_ids, node_t = _as_int64(node_ids), _as_int64(node_t)
+            node_feats = _as_f32(node_feats)
+            norder = np.argsort(node_t, kind="stable")
+            node_ids, node_t = node_ids[norder], node_t[norder]
+            if node_feats is not None:
+                node_feats = node_feats[norder]
+
+        if num_nodes is None:
+            hi = 0
+            if len(src):
+                hi = max(hi, int(src.max()) + 1, int(dst.max()) + 1)
+            if node_ids is not None and len(node_ids):
+                hi = max(hi, int(node_ids.max()) + 1)
+            num_nodes = hi
+
+        static_node_feats = _as_f32(static_node_feats)
+        return cls(
+            src=src,
+            dst=dst,
+            edge_t=edge_t,
+            edge_feats=edge_feats,
+            node_ids=node_ids,
+            node_t=node_t,
+            node_feats=node_feats,
+            static_node_feats=static_node_feats,
+            granularity=TimeDelta.coerce(granularity),
+            num_nodes=num_nodes,
+        )
+
+    # ------------------------------------------------------------------
+    # Basic properties
+    # ------------------------------------------------------------------
+    @property
+    def num_edge_events(self) -> int:
+        return len(self.src)
+
+    @property
+    def num_node_events(self) -> int:
+        return 0 if self.node_ids is None else len(self.node_ids)
+
+    @property
+    def edge_feat_dim(self) -> int:
+        return 0 if self.edge_feats is None else self.edge_feats.shape[1]
+
+    @property
+    def node_feat_dim(self) -> int:
+        return 0 if self.node_feats is None else self.node_feats.shape[1]
+
+    @property
+    def time_span(self) -> Tuple[int, int]:
+        """[min_t, max_t] over all events (edge + node)."""
+        ts = [self.edge_t] if len(self.edge_t) else []
+        if self.node_t is not None and len(self.node_t):
+            ts.append(self.node_t)
+        if not ts:
+            return (0, 0)
+        return (int(min(t[0] for t in ts)), int(max(t[-1] for t in ts)))
+
+    # ------------------------------------------------------------------
+    # Splits
+    # ------------------------------------------------------------------
+    def split(
+        self, val_ratio: float = 0.15, test_ratio: float = 0.15
+    ) -> Tuple["DGData", "DGData", "DGData"]:
+        """Chronological split by edge-event count (TGB convention).
+
+        Boundary timestamps are respected: the split points are snapped so a
+        single timestamp never straddles two splits.
+        """
+        n = self.num_edge_events
+        i_val = int(n * (1.0 - val_ratio - test_ratio))
+        i_test = int(n * (1.0 - test_ratio))
+        # Snap split indices to timestamp boundaries.
+        i_val = int(np.searchsorted(self.edge_t, self.edge_t[min(i_val, n - 1)]))
+        i_test = int(np.searchsorted(self.edge_t, self.edge_t[min(i_test, n - 1)]))
+        t_val = int(self.edge_t[i_val]) if i_val < n else self.time_span[1] + 1
+        t_test = int(self.edge_t[i_test]) if i_test < n else self.time_span[1] + 1
+        return (
+            self.slice_events(0, i_val, t_hi=t_val),
+            self.slice_events(i_val, i_test, t_hi=t_test),
+            self.slice_events(i_test, n, t_hi=None),
+        )
+
+    def slice_events(self, lo: int, hi: int, t_hi: Optional[int] = None) -> "DGData":
+        """Sub-storage of edge events [lo, hi); node events filtered by time.
+
+        ``lo == hi`` (an empty window) is valid and yields an empty slice;
+        ``lo > hi`` or rows outside ``[0, num_edge_events]`` raise
+        ``ValueError`` — silently clamping used to produce empty or
+        misaligned feature slices downstream.
+        """
+        n = self.num_edge_events
+        if lo > hi:
+            raise ValueError(f"slice_events lo {lo} > hi {hi}")
+        if lo < 0 or hi > n:
+            raise ValueError(
+                f"slice_events window [{lo}, {hi}) out of range [0, {n})")
+        t_lo_bound = int(self.edge_t[lo]) if lo < self.num_edge_events and lo < hi else 0
+        nsel = slice(0, 0)
+        if self.node_ids is not None:
+            n_lo = int(np.searchsorted(self.node_t, t_lo_bound, side="left"))
+            n_hi = (
+                int(np.searchsorted(self.node_t, t_hi, side="left"))
+                if t_hi is not None
+                else len(self.node_t)
+            )
+            nsel = slice(n_lo, n_hi)
+        return dataclasses.replace(
+            self,
+            src=self.src[lo:hi],
+            dst=self.dst[lo:hi],
+            edge_t=self.edge_t[lo:hi],
+            edge_feats=None if self.edge_feats is None else self.edge_feats[lo:hi],
+            node_ids=None if self.node_ids is None else self.node_ids[nsel],
+            node_t=None if self.node_t is None else self.node_t[nsel],
+            node_feats=None if self.node_feats is None else self.node_feats[nsel],
+            eid_offset=self.eid_offset + lo,
+        )
+
+    # ------------------------------------------------------------------
+    # Time index (binary search over the cached sorted timestamp array)
+    # ------------------------------------------------------------------
+    def edge_range(self, t_lo: Optional[int], t_hi: Optional[int]) -> Tuple[int, int]:
+        """Edge-event index range with t in [t_lo, t_hi). O(log E)."""
+        lo = 0 if t_lo is None else int(np.searchsorted(self.edge_t, t_lo, "left"))
+        hi = (
+            self.num_edge_events
+            if t_hi is None
+            else int(np.searchsorted(self.edge_t, t_hi, "left"))
+        )
+        return lo, hi
+
+    def node_event_range(self, t_lo, t_hi) -> Tuple[int, int]:
+        """Node-event index range with t in [t_lo, t_hi). O(log #events)."""
+        if self.node_t is None:
+            return 0, 0
+        lo = 0 if t_lo is None else int(np.searchsorted(self.node_t, t_lo, "left"))
+        hi = (
+            len(self.node_t)
+            if t_hi is None
+            else int(np.searchsorted(self.node_t, t_hi, "left"))
+        )
+        return lo, hi
+
+
+class DGraph:
+    """Lightweight, concurrency-safe view over a ``DGData`` storage.
+
+    Tracks time boundaries ``[t_lo, t_hi)`` and the iteration granularity.
+    Creating or slicing a view never copies event arrays.
+    """
+
+    __slots__ = ("data", "t_lo", "t_hi", "granularity", "device")
+
+    def __init__(
+        self,
+        data: DGData,
+        t_lo: Optional[int] = None,
+        t_hi: Optional[int] = None,
+        granularity: Optional[TimeDelta | str] = None,
+        device: str = "cpu",
+    ):
+        self.data = data
+        span = data.time_span
+        self.t_lo = span[0] if t_lo is None else int(t_lo)
+        self.t_hi = span[1] + 1 if t_hi is None else int(t_hi)
+        g = data.granularity if granularity is None else TimeDelta.coerce(granularity)
+        if not g.is_event_ordered and not data.granularity.is_event_ordered:
+            if not g.is_coarser_or_equal(data.granularity):
+                raise ValueError(
+                    f"view granularity {g} must be >= native {data.granularity}"
+                )
+        self.granularity = g
+        self.device = device
+
+    # -- slicing -----------------------------------------------------------
+    def slice_time(self, t_lo: int, t_hi: int) -> "DGraph":
+        """Temporal sub-graph G|_[t_lo, t_hi). O(1)."""
+        return DGraph(
+            self.data,
+            max(self.t_lo, t_lo),
+            min(self.t_hi, t_hi),
+            self.granularity,
+            self.device,
+        )
+
+    # -- statistics ---------------------------------------------------------
+    @property
+    def num_nodes(self) -> int:
+        return self.data.num_nodes
+
+    @property
+    def num_edge_events(self) -> int:
+        lo, hi = self.data.edge_range(self.t_lo, self.t_hi)
+        return hi - lo
+
+    @property
+    def num_node_events(self) -> int:
+        lo, hi = self.data.node_event_range(self.t_lo, self.t_hi)
+        return hi - lo
+
+    def edge_slice(self) -> Tuple[int, int]:
+        """Edge-event index range [lo, hi) of this view in its storage."""
+        return self.data.edge_range(self.t_lo, self.t_hi)
+
+    # -- materialization -----------------------------------------------------
+    def materialize(self, lo: Optional[int] = None, hi: Optional[int] = None) -> dict:
+        """Raw event arrays for edge-index range [lo, hi) within the view."""
+        vlo, vhi = self.edge_slice()
+        lo = vlo if lo is None else max(vlo, lo)
+        hi = vhi if hi is None else min(vhi, hi)
+        d = self.data
+        out = {
+            "src": d.src[lo:hi],
+            "dst": d.dst[lo:hi],
+            "time": d.edge_t[lo:hi],
+        }
+        if d.edge_feats is not None:
+            out["edge_feats"] = d.edge_feats[lo:hi]
+        if d.node_ids is not None and hi > lo:
+            t0 = int(d.edge_t[lo]) if hi > lo else self.t_lo
+            t1 = int(d.edge_t[hi - 1]) + 1 if hi > lo else self.t_hi
+            nlo, nhi = d.node_event_range(t0, t1)
+            out["node_event_ids"] = d.node_ids[nlo:nhi]
+            out["node_event_time"] = d.node_t[nlo:nhi]
+            if d.node_feats is not None:
+                out["node_event_feats"] = d.node_feats[nlo:nhi]
+        return out
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (
+            f"DGraph(nodes={self.num_nodes}, edges={self.num_edge_events}, "
+            f"t=[{self.t_lo},{self.t_hi}), gran={self.granularity})"
+        )

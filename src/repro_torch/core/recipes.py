@@ -1,0 +1,106 @@
+"""Pre-defined hook recipes (paper §4).
+
+``RECIPE_TGB_LINK`` builds the TGB link-prediction hook pipeline: random
+training negatives, one-vs-many eval negatives, device-resident recency
+neighbors, edge-feature lookup, padding and the device transfer. The port
+carries the device-recency branch of ``repro.core.recipes``
+(``SamplerSpec(kind="recency", device=True)``); the host and uniform
+samplers and the other recipes are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from repro_torch.core.hooks import HookManager
+from repro_torch.core.tg_hooks import (
+    DeviceRecencyNeighborHook,
+    DeviceTransferHook,
+    EdgeFeatureLookupHook,
+    NegativeEdgeHook,
+    PadBatchHook,
+    TGBEvalNegativesHook,
+)
+
+RECIPE_TGB_LINK = "tgb_link"
+
+TRAIN_KEY = "train"
+EVAL_KEY = "eval"
+
+
+class RecipeRegistry:
+    """Name -> HookManager-factory registry for pre-defined recipes."""
+
+    _builders: Dict[str, Callable[..., HookManager]] = {}
+
+    @classmethod
+    def register(cls, name: str):
+        """Decorator: register a recipe factory under ``name``."""
+        def deco(fn):
+            cls._builders[name] = fn
+            return fn
+
+        return deco
+
+    @classmethod
+    def build(cls, name: str, **kwargs) -> HookManager:
+        """Instantiate the recipe ``name`` with factory kwargs."""
+        if name not in cls._builders:
+            raise KeyError(f"unknown recipe {name!r}; have {sorted(cls._builders)}")
+        return cls._builders[name](**kwargs)
+
+    @classmethod
+    def available(cls):
+        """Sorted names of all registered recipes."""
+        return sorted(cls._builders)
+
+
+@RecipeRegistry.register(RECIPE_TGB_LINK)
+def _tgb_link(
+    num_nodes: int,
+    spec,
+    batch_size: int = 200,
+    eval_negatives: int = 100,
+    edge_feats: Optional[np.ndarray] = None,
+    edge_feat_dim: int = 0,
+    dst_pool: Optional[np.ndarray] = None,
+    seed: int = 0,
+    device="cuda",
+) -> HookManager:
+    """Build the TGB link-prediction hook pipeline from a ``SamplerSpec``.
+
+    Only ``kind="recency"`` with ``device=True``, no ``shards`` and one hop
+    is ported; anything else raises ``NotImplementedError``.
+    """
+    if spec.kind != "recency" or not spec.device or spec.shards:
+        raise NotImplementedError(
+            "the port's RECIPE_TGB_LINK carries the single-device recency "
+            "branch only (SamplerSpec(kind='recency', device=True)); host, "
+            "uniform and sharded samplers are later slices (ROADMAP A)"
+        )
+    if spec.num_hops not in (None, 1):
+        raise NotImplementedError(
+            "hop-2 neighborhoods wait for 2-layer TGAT (ROADMAP A)")
+    m = HookManager()
+    # Padding runs FIRST so negatives/neighbor tensors come out fixed-shape;
+    # stateful hooks exclude padded events via batch_mask.
+    m.register(PadBatchHook(batch_size))
+    m.register(
+        NegativeEdgeHook(num_nodes, num_negatives=1, seed=seed, dst_pool=dst_pool),
+        key=TRAIN_KEY,
+    )
+    m.register(
+        TGBEvalNegativesHook(num_nodes, num_negatives=eval_negatives, seed=seed,
+                             dst_pool=dst_pool),
+        key=EVAL_KEY,
+    )
+    # One shared neighbor sampler serves both keys (updates exclude padding
+    # and happen once per batch).
+    m.register(DeviceRecencyNeighborHook(num_nodes, spec.k, device=device,
+                                         expose_buffer=spec.expose_buffer,
+                                         edge_feats=edge_feats))
+    m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))
+    m.register(DeviceTransferHook(device))
+    return m

@@ -1,0 +1,114 @@
+"""Multi-head attention primitives for the TG model zoo.
+
+``mha`` / ``seed_neighbor_attention`` are the classic path over a
+pre-gathered ``(S, K, Dkv)`` neighbor tensor; ``fused_seed_neighbor_attention``
+is its fused twin over the device sampler's packed buffer, whose attention
+runs in the hand-written CUDA kernel on the GPU
+(``kernels.temporal_attention``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.nn.linear import dense, dense_init
+
+NEG_INF = -1e9
+
+
+def mha_init(gen, d_q: int, d_kv: int, d_model: int, num_heads: int,
+             device="cpu"):
+    """Init q/k/v/o dense params for multi-head attention with separate
+    query (d_q) and key/value (d_kv) input widths."""
+    if d_model % num_heads:
+        raise ValueError(f"d_model {d_model} not divisible by heads {num_heads}")
+    return {
+        "q": dense_init(gen, d_q, d_model, device=device),
+        "k": dense_init(gen, d_kv, d_model, device=device),
+        "v": dense_init(gen, d_kv, d_model, device=device),
+        "o": dense_init(gen, d_model, d_model, device=device),
+    }
+
+
+def _split_heads(x, h):
+    *lead, d = x.shape
+    return x.reshape(*lead, h, d // h)
+
+
+def mha(params, q_in, kv_in, mask=None, num_heads: int = 2):
+    """q_in: (..., Lq, Dq); kv_in: (..., Lk, Dkv); mask: (..., Lq, Lk) bool.
+
+    Returns (..., Lq, d_model).
+    """
+    h = num_heads
+    q = _split_heads(dense(params["q"], q_in), h)  # (..., Lq, H, dh)
+    k = _split_heads(dense(params["k"], kv_in), h)
+    v = _split_heads(dense(params["v"], kv_in), h)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k) * scale
+    if mask is not None:
+        logits = torch.where(mask[..., None, :, :], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        # Rows with no valid key: zero output instead of uniform garbage.
+        any_valid = mask[..., None, :, :].any(-1, keepdim=True)
+        w = torch.where(any_valid, w, 0.0)
+    out = torch.einsum("...hqk,...khd->...qhd", w, v)
+    *lead, Lq, H, dh = out.shape
+    return dense(params["o"], out.reshape(*lead, Lq, H * dh))
+
+
+def seed_neighbor_attention(params, seed_feat, nbr_feat, nbr_mask,
+                            num_heads: int = 2):
+    """TGAT-style: one query (the seed) attends over its K neighbors.
+
+    seed_feat: (S, Dq); nbr_feat: (S, K, Dkv); nbr_mask: (S, K) bool.
+    Returns (S, d_model).
+    """
+    out = mha(params, seed_feat[:, None, :], nbr_feat, nbr_mask[:, None, :],
+              num_heads=num_heads)
+    return out[:, 0, :]
+
+
+def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,
+                                  buf, time_params, d_edge: int = 0,
+                                  edge_table=None, num_heads: int = 2,
+                                  mode: str = "auto"):
+    """Fused twin of ``seed_neighbor_attention`` over the packed buffer.
+
+    The kv projection ``concat([node, edge, time]) @ W`` is split by input
+    rows of ``W`` into ``[node | edge | time]``: the node term becomes an
+    (N, H, Dh) table (dense bias folded in), while the edge-feature and
+    Bochner time-encoding terms are added per neighbor slot by
+    ``fused_temporal_layer`` — inside the CUDA kernel on the GPU, so the
+    ``(S, K, H, Dh)`` gather never lands in device memory.
+
+    node_kv_in: (N, d_node); q_in: (S, Dq) query inputs (projected here);
+    seeds/seed_times: (S,); buf: (Nb, K, 3); time_params: ``time_encode``
+    params; edge_table: (E, d_edge) edge-feature storage (or None).
+    ``mode`` is forwarded to ``fused_temporal_layer``. Returns (S, d_model).
+    """
+    from repro_torch.kernels.temporal_attention import fused_temporal_layer
+
+    d_model = params["o"]["w"].shape[0]
+    h = num_heads
+    dh = d_model // h
+    d_node = node_kv_in.shape[-1]
+    wk, wv = params["k"], params["v"]
+    k_tab = (node_kv_in @ wk["w"][:d_node] + wk["b"]).reshape(-1, h, dh)
+    v_tab = (node_kv_in @ wv["w"][:d_node] + wv["b"]).reshape(-1, h, dh)
+    use_edge = bool(d_edge) and edge_table is not None
+    we_k = wk["w"][d_node:d_node + d_edge] if use_edge else None
+    we_v = wv["w"][d_node:d_node + d_edge] if use_edge else None
+    wt_k = wk["w"][d_node + d_edge:]
+    wt_v = wv["w"][d_node + d_edge:]
+    q = _split_heads(dense(params["q"], q_in), h)  # (S, H, Dh)
+    att = fused_temporal_layer(
+        q, k_tab, v_tab, seeds.to(torch.int32), seed_times.to(torch.int32),
+        buf, time_w=time_params["w"], time_b=time_params["b"],
+        wt_k=wt_k, wt_v=wt_v, edge_feats=edge_table if use_edge else None,
+        we_k=we_k, we_v=we_v, mode=mode,
+    )
+    return dense(params["o"], att.reshape(-1, d_model))
