@@ -2,7 +2,8 @@
 
 Numpy copies of the reference's event storage, views, granularity, batches,
 hooks and negatives (bit-equal to ``repro.core``), plus the torch
-``DeviceRecencySampler`` and the device-recency link recipe.
+``DeviceRecencySampler``, the device-recency link recipe and the
+``PrefetchLoader`` that stages batches on a side CUDA stream.
 """
 
 from repro_torch.core.batch import Batch
@@ -10,7 +11,7 @@ from repro_torch.core.device_sampler import DeviceRecencySampler
 from repro_torch.core.granularity import EventOrderedError, TimeDelta
 from repro_torch.core.graph import DGData, DGraph
 from repro_torch.core.hooks import BASE_ATTRS, Hook, HookManager, LambdaHook, RecipeError, resolve_order
-from repro_torch.core.loader import DGDataLoader
+from repro_torch.core.loader import DGDataLoader, PrefetchLoader
 from repro_torch.core.negatives import NegativeEdgeSampler
 from repro_torch.core.recipes import EVAL_KEY, RECIPE_TGB_LINK, TRAIN_KEY, RecipeRegistry
 from repro_torch.core.sampler import NeighborBlock
@@ -28,6 +29,7 @@ __all__ = [
     "LambdaHook",
     "NegativeEdgeSampler",
     "NeighborBlock",
+    "PrefetchLoader",
     "RecipeError",
     "RecipeRegistry",
     "TimeDelta",

@@ -254,13 +254,19 @@ class PadBatchHook(Hook):
         return batch
 
 
-def stage_batch(batch: Batch, device) -> Batch:
+def stage_batch(batch: Batch, device, pool=None) -> Batch:
     """Move every host numpy attribute of ``batch`` to ``device`` (int64
     narrowed to int32, as the reference stages for its jitted models);
-    tensors already on the device pass through."""
+    tensors already on the device pass through. ``pool`` (a
+    ``core.loader._HostStagingPool``) routes each array through a reused
+    pinned buffer and copies it with ``non_blocking=True``; the caller
+    records the event that the slot's next rewrite waits for."""
     for key in list(batch.keys()):
         v = batch[key]
         if isinstance(v, np.ndarray):
+            if pool is not None:
+                batch[key] = pool.stage(key, v).to(device, non_blocking=True)
+                continue
             if v.dtype == np.int64:
                 v = v.astype(np.int32)
             batch[key] = torch.from_numpy(np.ascontiguousarray(v)).to(device)

@@ -1,9 +1,10 @@
-"""Fused temporal neighbor attention: the CUDA kernel, its plain version
-and the ``mode=`` dispatch."""
+"""Fused temporal neighbor attention: the CUDA kernels (forward and
+backward), their plain versions and the ``mode=`` dispatch."""
 
 from repro_torch.kernels.temporal_attention.kernel import (
     LAUNCHES,
     fused_recency_attention_kernel,
+    fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
     reset_launches,
 )
@@ -13,6 +14,7 @@ from repro_torch.kernels.temporal_attention.ops import (
 )
 from repro_torch.kernels.temporal_attention.ref import (
     fused_recency_attention_ref,
+    fused_temporal_layer_bwd_ref,
     fused_temporal_layer_ref,
 )
 
@@ -22,6 +24,8 @@ __all__ = [
     "fused_recency_attention_kernel",
     "fused_recency_attention_ref",
     "fused_temporal_layer",
+    "fused_temporal_layer_bwd_kernel",
+    "fused_temporal_layer_bwd_ref",
     "fused_temporal_layer_kernel",
     "fused_temporal_layer_ref",
     "reset_launches",

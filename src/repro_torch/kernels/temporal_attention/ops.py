@@ -12,7 +12,12 @@
   * ``"kernel"`` — force the CUDA kernel; raises on CPU tensors.
 
 There is no fallback: a CUDA tensor in ``"auto"`` launches the kernel or
-raises.
+raises. On the kernel path ``fused_temporal_layer`` is differentiable
+through ``_FusedLayerFn``, the counterpart of the reference's custom VJP
+(``repro.kernels.temporal_attention.ops._fused_layer_call``): its forward
+launches the forward kernel and saves only the operands, its backward
+launches the backward kernel, which recomputes the attention. On the CPU
+plain autograd differentiates the plain version.
 """
 
 from __future__ import annotations
@@ -21,12 +26,25 @@ import torch
 
 from repro_torch.kernels.temporal_attention.kernel import (
     fused_recency_attention_kernel,
+    fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
 )
 from repro_torch.kernels.temporal_attention.ref import (
+    GRAD_NAMES,
     fused_recency_attention_ref,
     fused_temporal_layer_ref,
 )
+
+# The two launches of ``_FusedLayerFn``. Module attributes so that the CPU
+# tests can stand the plain versions in for them; nothing else rebinds them.
+_FWD = fused_temporal_layer_kernel
+_BWD = fused_temporal_layer_bwd_kernel
+
+# Names of ``_FusedLayerFn``'s positional arguments, in order. Its backward
+# returns a gradient for those in ``GRAD_NAMES`` and None for the rest
+# (seeds, seed times, buffer, edge storage).
+_ARGS = ("q", "k_table", "v_table", "seeds", "seed_times", "buf", "time_w",
+         "time_b", "wt_k", "wt_v", "edge_feats", "we_k", "we_v")
 
 
 def _use_kernel(mode: str, x: torch.Tensor) -> bool:
@@ -37,6 +55,33 @@ def _use_kernel(mode: str, x: torch.Tensor) -> bool:
         raise ValueError(
             f"mode='kernel' needs CUDA tensors; got a tensor on {x.device}")
     return mode == "kernel" or (mode == "auto" and x.device.type == "cuda")
+
+
+class _FusedLayerFn(torch.autograd.Function):
+    """The fused layer with the backward kernel as its gradient.
+
+    ``forward`` launches the forward kernel and saves only its operands;
+    ``backward`` launches the backward kernel on the stream current inside
+    ``backward`` (autograd runs it on the forward's stream) and reshapes each
+    gradient to its operand's shape. No (S, K, ...) tensor is saved: the
+    backward recomputes the attention from the operands.
+    """
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        kw = dict(zip(_ARGS, args))
+        return _FWD(**kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        kw = dict(zip(_ARGS, args))
+        grads = _BWD(g.contiguous(), **kw)
+        return tuple(
+            grads[name].reshape(x.shape).to(x.dtype)
+            if name in GRAD_NAMES and x is not None else None
+            for name, x in kw.items())
 
 
 def fused_temporal_layer(q, k_table, v_table, seeds, seed_times, buf, *,
@@ -63,10 +108,11 @@ def fused_temporal_layer(q, k_table, v_table, seeds, seed_times, buf, *,
     seeds = seeds.to(torch.int32).contiguous()
     if seed_times is not None:
         seed_times = seed_times.to(torch.int32).contiguous()
-    return fused_temporal_layer_kernel(
+    kw = {k: None if v is None else v.contiguous() for k, v in kw.items()}
+    return _FusedLayerFn.apply(
         q.contiguous(), k_table.contiguous(), v_table.contiguous(), seeds,
         seed_times, buf.to(torch.int32).contiguous(),
-        **{k: None if v is None else v.contiguous() for k, v in kw.items()})
+        *(kw[name] for name in _ARGS[6:]))
 
 
 def fused_recency_attention(q, k_table, v_table, seeds, buf_ids, *,

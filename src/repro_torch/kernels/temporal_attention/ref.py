@@ -5,8 +5,10 @@ every intermediate the CUDA kernel keeps in shared memory — the gathered
 (S, K, H, D) node-level k/v rows, the Bochner time bias
 ``phi(t_seed - t_nbr) @ wt`` and the edge bias ``edge_feats[eid] @ we`` —
 then run a masked softmax attention. ``ops.fused_temporal_layer`` takes
-them for CPU tensors (the CPU tests), ``chip_smoke.py`` holds the kernel
-against them on the card.
+them for CPU tensors (the CPU tests), ``chip_smoke.py`` holds the kernels
+against them on the card. ``fused_temporal_layer_bwd_ref`` is the plain
+version of the backward kernel: autograd through the forward's plain
+version, in the backward kernel's dict layout.
 """
 
 from __future__ import annotations
@@ -64,6 +66,39 @@ def fused_temporal_layer_ref(
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1)[:, None, None], p, 0.0)
     return torch.einsum("shk,skhd->shd", p, v).to(q.dtype)
+
+
+# Differentiable operands of the fused layer, in the backward's dict order.
+GRAD_NAMES = ("q", "k_table", "v_table", "time_w", "time_b", "wt_k", "wt_v",
+              "we_k", "we_v")
+
+
+def fused_temporal_layer_bwd_ref(
+    g, q, k_table, v_table, seeds, seed_times, buf, *,
+    time_w=None, time_b=None, wt_k=None, wt_v=None,
+    edge_feats=None, we_k=None, we_v=None, scale: float | None = None,
+):
+    """Gradients of ``fused_temporal_layer_ref`` for the cotangent ``g``
+    (S, H, D), by ``torch.autograd.grad``. Returns the backward kernel's
+    dict of float32 gradients: ``q``, ``k_table``, ``v_table`` in their
+    shapes, ``time_w``/``time_b`` as (1, d_time) and the projection slices
+    as (d, H*D), for the groups that are present."""
+    diff = dict(q=q, k_table=k_table, v_table=v_table, time_w=time_w,
+                time_b=time_b, wt_k=wt_k, wt_v=wt_v, we_k=we_k, we_v=we_v)
+    diff = {k: v.detach().float().requires_grad_(True)
+            for k, v in diff.items() if v is not None}
+    with torch.enable_grad():
+        out = fused_temporal_layer_ref(
+            seeds=seeds, seed_times=seed_times, buf=buf,
+            edge_feats=edge_feats, scale=scale,
+            **{k: diff.get(k) for k in GRAD_NAMES})
+        grads = torch.autograd.grad(out, list(diff.values()), g.float(),
+                                    allow_unused=True)
+    out = {}
+    for (name, x), dx in zip(diff.items(), grads):
+        dx = torch.zeros_like(x) if dx is None else dx
+        out[name] = dx.reshape(1, -1) if name in ("time_w", "time_b") else dx
+    return out
 
 
 def fused_recency_attention_ref(q, k_table, v_table, seeds, buf_ids, *,

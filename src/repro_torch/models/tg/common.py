@@ -8,6 +8,7 @@ size and Nn = negatives per positive:
   batch_mask : (B,) valid-event mask
 
 Models embed all S seeds and ``split_seeds`` recovers (h_src, h_dst, h_neg).
+``bce_link_loss`` is the training objective over the link logits.
 """
 
 from __future__ import annotations
@@ -60,6 +61,33 @@ def link_logits(params, h, batch_size: int):
     neg = link_decoder(params, h_src, h_neg)  # (B, Nn)
     same = (h_neg == h_dst[:, None]).all(-1)
     return pos, torch.where(same, pos[:, None], neg)
+
+
+def bce_link_loss_parts(pos_logits, neg_logits, batch_mask):
+    """Masked BCE numerator and denominator before normalization.
+
+    Returns ``(loss_sum, denom)``: the negative log-likelihood summed over
+    the valid positives and their negatives, and the count of those terms
+    (the reference keeps the parts apart for data-sharded training). A tied
+    negative carries the positive's logit (``link_logits``), so its term's
+    gradient reaches the decoder through the positive pass: the same
+    gradient as the reference's, which decodes the identical pair twice.
+    """
+    m = batch_mask.to(torch.float32)
+    loss = -(torch.nn.functional.logsigmoid(pos_logits) * m).sum()
+    denom = m.sum()
+    if neg_logits is not None:
+        neg_ls = torch.nn.functional.logsigmoid(-neg_logits)
+        loss = loss - (neg_ls * m[:, None]).sum()
+        denom = denom + (m[:, None] * torch.ones_like(neg_logits)).sum()
+    return loss, denom
+
+
+def bce_link_loss(pos_logits, neg_logits, batch_mask):
+    """Masked binary cross-entropy over positives and negatives, normalized
+    by the number of terms (at least 1)."""
+    loss, denom = bce_link_loss_parts(pos_logits, neg_logits, batch_mask)
+    return loss / torch.clamp(denom, min=1.0)
 
 
 def node_feature_init(gen, num_nodes: int, d_static: int, d_model: int,

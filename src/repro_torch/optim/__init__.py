@@ -1,0 +1,5 @@
+"""Optimizers of the port: AdamW on nested dicts of tensors."""
+
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update"]

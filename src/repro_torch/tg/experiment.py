@@ -2,16 +2,17 @@
 
 Same specs and serialization as ``repro.tg.Experiment``. ``compile`` covers
 the CTDG link quadrant (``task="link"``, no discretization) for the ported
-pipeline, on ``device`` (``"cuda"`` by default); the snapshot and node
-quadrants, out-of-core storage, telemetry and ``run()`` (training) raise
-``NotImplementedError`` until their slices land.
+pipeline, on ``device`` (``"cuda"`` by default), with ``TrainSpec.telemetry``
+as a JSONL ``FileSink``; ``run`` compiles, trains through ``TrainLoop`` and
+evaluates. The snapshot and node quadrants, out-of-core storage and data
+sharding raise ``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 from repro_torch.device import resolve_device
 from repro_torch.tg.specs import DataSpec, ModelSpec, SamplerSpec, TrainSpec
@@ -67,11 +68,24 @@ class Experiment:
         return cls.from_dict(json.loads(blob))
 
     # -- compilation -----------------------------------------------------
-    def compile(self, data=None, device="cuda"):
+    def _telemetry(self, telemetry=None):
+        """The run's ``repro_torch.obs.Telemetry``: the explicit override,
+        else a ``FileSink`` writer at ``TrainSpec.telemetry``, else ``None``
+        (the pipeline then keeps its own disabled instance)."""
+        if telemetry is not None:
+            return telemetry
+        if self.train.telemetry is not None:
+            from repro_torch.obs import FileSink, Telemetry
+
+            return Telemetry(FileSink(self.train.telemetry))
+        return None
+
+    def compile(self, data=None, device="cuda", telemetry=None):
         """Assemble the pipeline this experiment describes on ``device``.
 
         ``data`` overrides ``DataSpec``'s generated stream with a pre-built
-        ``DGData``. Only the CTDG link quadrant is ported.
+        ``DGData``; ``telemetry`` overrides the ``TrainSpec.telemetry``
+        writer. Only the CTDG link quadrant is ported.
         """
         resolve_device(device)
         d, m, t = self.data, self.model, self.train
@@ -80,10 +94,10 @@ class Experiment:
                 "the port compiles the CTDG link quadrant (task='link', no "
                 "discretization); snapshot and node pipelines are later "
                 "slices (ROADMAP A)")
-        if d.storage is not None or t.telemetry is not None or t.data_shards > 1:
+        if d.storage is not None or t.data_shards > 1:
             raise NotImplementedError(
-                "out-of-core storage, telemetry and data sharding are later "
-                "slices of the port (ROADMAP A)")
+                "out-of-core storage and data sharding are later slices of "
+                "the port (ROADMAP A)")
         if m.name not in CTDG_LINK_MODELS:
             raise ValueError(
                 f"model {m.name!r} is not an event-stream (CTDG) link model; "
@@ -96,8 +110,32 @@ class Experiment:
 
         return CTDGLinkPipeline(
             m.name, data,
-            batch_size=t.batch_size, eval_negatives=t.eval_negatives,
-            seed=t.seed, model_kwargs=dict(m.kwargs),
-            sampler_spec=self.sampler, val_ratio=d.val_ratio,
-            test_ratio=d.test_ratio, device=device,
+            batch_size=t.batch_size, lr=t.lr,
+            eval_negatives=t.eval_negatives, seed=t.seed,
+            model_kwargs=dict(m.kwargs), sampler_spec=self.sampler,
+            val_ratio=d.val_ratio, test_ratio=d.test_ratio,
+            telemetry=self._telemetry(telemetry), device=device,
         )
+
+    # -- execution -------------------------------------------------------
+    def run(self, data=None, splits: Tuple[str, ...] = ("test",), log=None,
+            device="cuda") -> Dict[str, Any]:
+        """Compile on ``device``, fit and evaluate in one call.
+
+        Runs ``TrainSpec.epochs`` epochs through ``TrainLoop`` (eval
+        cadence ``eval_every`` on ``eval_split``, checkpoint cadence
+        ``ckpt_every`` into ``ckpt_dir``), then evaluates each of ``splits``.
+        Returns ``{"pipeline", "history", "metrics"}``; ``metrics`` maps a
+        split to its MRR.
+        """
+        from repro_torch.train.loop import TrainLoop
+
+        tel = self._telemetry()
+        pipeline = self.compile(data, device=device, telemetry=tel)
+        t = self.train
+        history = TrainLoop(pipeline, telemetry=tel).fit(
+            epochs=t.epochs, eval_every=t.eval_every, eval_split=t.eval_split,
+            ckpt_dir=t.ckpt_dir, ckpt_every=t.ckpt_every, log=log,
+        )
+        metrics = {s: pipeline.evaluate(s)[0] for s in splits}
+        return {"pipeline": pipeline, "history": history, "metrics": metrics}

@@ -11,8 +11,8 @@ one experiment blob reads in both packages:
   ``ModelSpec``   — *what model*: a zoo name plus its config kwargs.
   ``TrainSpec``   — *how to train*: optimizer, epochs, cadences.
 
-Fields the port does not carry yet (snapshots, storage, sharding,
-telemetry, training) keep their place so blobs round-trip;
+Fields the port does not carry yet (snapshots, storage, sharding) keep
+their place so blobs round-trip;
 ``tg.Experiment.compile`` raises ``NotImplementedError`` when one is set.
 """
 
@@ -113,10 +113,11 @@ class SamplerSpec(_SpecBase):
     selects the device-resident sampler. ``num_hops=None`` derives the hop
     count from the model depth. ``expose_buffer`` forwards to
     ``DeviceRecencyNeighborHook`` (``None`` = on: the fused kernel reads
-    the packed buffer). ``checkpoint_adjacency``, ``prefetch``, ``shards``,
-    ``mesh_axis`` and ``partition`` are the reference's uniform-sampler,
-    ``PrefetchLoader`` and mesh options. The port runs
-    ``kind="recency", device=True`` on one device.
+    the packed buffer). ``prefetch`` is the reference's ``PrefetchLoader``
+    queue depth; the port's pipeline runs its hooks in the calling thread
+    and does not read it. ``checkpoint_adjacency``, ``shards``, ``mesh_axis`` and
+    ``partition`` are the reference's uniform-sampler and mesh options. The
+    port runs ``kind="recency", device=True`` on one device.
     """
 
     kind: str = "recency"
@@ -172,10 +173,12 @@ class ModelSpec(_SpecBase):
 class TrainSpec(_SpecBase):
     """Optimizer, epochs, eval cadence, and checkpoint policy.
 
-    The port reads ``batch_size``, ``eval_negatives`` and ``seed`` (the
-    inference surface); the other fields keep the reference's meaning for
-    the training slice. ``data_shards > 1`` (the reference's 2-D mesh) and
-    ``telemetry`` make ``Experiment.compile`` raise.
+    The port reads every field of the CTDG link pipeline: ``lr``,
+    ``epochs``, ``batch_size``, ``eval_negatives``, ``seed``, the eval and
+    checkpoint cadences and ``telemetry`` (a JSONL path). ``num_negatives``,
+    ``compiled`` and ``chunk_size`` belong to the snapshot pipelines, which
+    are not ported; ``data_shards > 1`` (the reference's 2-D mesh) makes
+    ``Experiment.compile`` raise.
     """
 
     lr: Optional[float] = None

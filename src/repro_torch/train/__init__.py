@@ -1,1 +1,2 @@
-"""Inference surface of the CTDG link pipeline (training comes next)."""
+"""The CTDG link pipeline of the port: training, evaluation, checkpoints
+and the epoch engine (``loop``), and the MRR metric (``metrics``)."""

@@ -34,7 +34,9 @@ def _port_modules():
 
 def test_port_modules_load_no_jax_and_no_reference():
     names = _port_modules()
-    assert "repro_torch.kernels.temporal_attention.kernel" in names
+    assert {"repro_torch.kernels.temporal_attention.kernel",
+            "repro_torch.optim.adamw", "repro_torch.obs.telemetry",
+            "repro_torch.distributed.checkpoint"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -59,14 +61,23 @@ def test_port_sources_have_no_jax_or_reference_import(path):
 def test_entry_points_default_to_cuda(monkeypatch):
     import torch
 
-    from repro_torch.core import DeviceRecencySampler
-    from repro_torch.tg import Experiment
+    from repro_torch.core import DeviceRecencySampler, PrefetchLoader
+    from repro_torch.data import generate
+    from repro_torch.tg import Experiment, ModelSpec
+    from repro_torch.train.loop import CTDGLinkPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceRecencySampler(10, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Experiment().compile()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(model=ModelSpec("tgat", {"num_layers": 1})).run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CTDGLinkPipeline("tgat", generate("tiny"),
+                         model_kwargs={"num_layers": 1})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrefetchLoader([])
     DeviceRecencySampler(10, 4, device="cpu")  # the explicit CPU path runs
 
 

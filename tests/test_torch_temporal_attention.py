@@ -134,3 +134,123 @@ def test_ref_mode_forces_the_plain_version():
     args = _torch(_inputs(2, **CASES["time_edge"]))
     np.testing.assert_array_equal(fused_temporal_layer(**args, mode="ref"),
                                   fused_temporal_layer(**args, mode="auto"))
+
+
+# -- Backward (K2) --------------------------------------------------------
+# Gradient tolerance of tests/kernels/harness.py and the JAX package's own
+# backward-kernel tests: f32, rtol=atol=1e-4. The time_w gradient sums
+# dtheta * dt over every slot (dt up to ~1e3 here, ~2.6e6 on wikipedia), so
+# an entry that cancels carries the rounding of its largest terms: it is
+# held to 1e-4 of the gradient's largest entry instead.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _assert_grad_close(got, want, name):
+    if name == "time_w":
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), name
+    else:
+        np.testing.assert_allclose(got, want, err_msg=name, **GRAD_TOL)
+DIFF = ("q", "k_table", "v_table", "time_w", "time_b", "wt_k", "wt_v",
+        "we_k", "we_v")
+BWD_CASES = ("time_edge", "neg_seeds", "empty_rows", "all_masked", "dup_ids",
+             "time_only", "edge_only", "no_groups", "quickstart_widths")
+
+
+def _cotangent(args):
+    S, H, D = args["q"].shape
+    return np.random.default_rng(99).standard_normal((S, H, D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_fused_temporal_layer_bwd_matches_jax(case):
+    """The port's plain backward (``fused_temporal_layer_bwd_ref``) and the
+    plain autograd of ``fused_temporal_layer`` against the JAX backward
+    kernel in interpret mode and ``jax.vjp`` of the JAX ref path, over every
+    differentiable operand."""
+    from repro.kernels.temporal_attention.kernel import (
+        fused_temporal_layer_bwd_kernel as jax_bwd_kernel,
+    )
+    from repro_torch.kernels.temporal_attention import fused_temporal_layer_bwd_ref
+
+    args = _inputs(13, **CASES[case])
+    g = _cotangent(args)
+    names = [n for n in DIFF if n in args]
+
+    want_kernel = jax.device_get(jax.jit(lambda a, gg: jax_bwd_kernel(
+        gg, **a, block_s=8, interpret=True))(_jax(args), jnp.asarray(g)))
+
+    def jax_ref(diff, rest):
+        return jops.fused_temporal_layer(**diff, **rest, mode="ref")
+
+    diff = {n: jnp.asarray(args[n]) for n in names}
+    rest = {k: jnp.asarray(v) for k, v in args.items() if k not in names}
+    _, vjp = jax.vjp(lambda d: jax_ref(d, rest), diff)
+    (want_ref,) = vjp(jnp.asarray(g))
+
+    got_ref = fused_temporal_layer_bwd_ref(torch.from_numpy(g), **_torch(args))
+    leaves = {n: torch.from_numpy(args[n]).requires_grad_(True) for n in names}
+    out = fused_temporal_layer(**{**_torch(args), **leaves}, mode="auto")
+    out.backward(torch.from_numpy(g))
+
+    assert sorted(got_ref) == sorted(names) == sorted(want_kernel)
+    for n in names:
+        k = np.asarray(want_kernel[n])
+        r = np.asarray(want_ref[n])
+        _assert_grad_close(got_ref[n].numpy(), k, n)
+        _assert_grad_close(leaves[n].grad.numpy(), r, n)
+        assert tuple(got_ref[n].shape) == tuple(k.shape), n  # kernel layout
+    if case == "neg_seeds":
+        assert (got_ref["q"].numpy()[args["seeds"] < 0] == 0).all()
+    if case == "all_masked":
+        assert all((v == 0).all() for v in got_ref.values())
+
+
+@pytest.mark.parametrize("case", ["time_edge", "dup_ids"])
+def test_autograd_function_saves_only_operands(case, monkeypatch):
+    """``_FusedLayerFn`` with the plain versions standing in for its two
+    launches: the gradients are plain autograd's, and what it saves for the
+    backward is the operands — no (S, K, ...) tensor."""
+    from repro_torch.kernels.temporal_attention import (
+        fused_temporal_layer_bwd_ref,
+        fused_temporal_layer_ref,
+        ops,
+    )
+
+    monkeypatch.setattr(ops, "_FWD", fused_temporal_layer_ref)
+    monkeypatch.setattr(ops, "_BWD", fused_temporal_layer_bwd_ref)
+    args = _inputs(17, **CASES[case])
+    g = torch.from_numpy(_cotangent(args))
+    S, K = args["q"].shape[0], args["buf"].shape[1]
+    names = [n for n in DIFF if n in args]
+
+    def run(fn):
+        leaves = {n: torch.from_numpy(args[n]).requires_grad_(True)
+                  for n in names}
+        kw = {**_torch(args), **leaves}
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+            out = fn(kw)
+        out.backward(g)
+        return out, {n: leaves[n].grad for n in names}, saved
+
+    out, grads, saved = run(lambda kw: ops._FusedLayerFn.apply(
+        *(kw.get(name) for name in ops._ARGS)))
+    want_out, want, _ = run(lambda kw: fused_temporal_layer(**kw, mode="ref"))
+    np.testing.assert_allclose(out.detach().numpy(), want_out.detach().numpy(),
+                               **TOL)
+    for n in names:
+        _assert_grad_close(grads[n].numpy(), want[n].numpy(), n)
+    operands = {tuple(v.shape) for v in _torch(args).values()}
+    assert saved and set(saved) <= operands
+    assert not any(len(s) >= 2 and s[:2] == (S, K) for s in saved)
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    from repro_torch.kernels.temporal_attention import (
+        fused_temporal_layer_bwd_kernel,
+    )
+
+    args = _torch(_inputs(0, **CASES["time_edge"]))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_temporal_layer_bwd_kernel(torch.zeros_like(args["q"]), **args)
