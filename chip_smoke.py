@@ -34,6 +34,23 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    free-running epochs. Epoch seconds and ms per step of each. Last, the
    ported ``PrefetchLoader`` (off the main path) against the calling
    thread's batches, bit for bit, with a train step on each batch.
+6. ``dtdg_kernels`` — K4 (the segment sum) against its plain version on the
+   card at the DTDG path's shapes (the largest hourly snapshot, E = 256
+   ids, and the largest daily one, E = 2,048, over G = 9,000 nodes at
+   widths D = 1 and 64) and on degenerate inputs (every id equal, every id
+   dropped, ids out of range, E = 1 and 0, D = 33, five segments, 5,000
+   ids, sorted ids), with times of the kernel, its plain version and
+   ``index_add_``, and the bound.
+7. ``dtdg``    — the snapshot slice: ``tg.Experiment`` with
+   ``DataSpec("wikipedia", discretization="h")`` and GCLSTM (``d_embed``
+   64): the ``SnapshotTensor`` built on the card, bit-equal to the CPU's;
+   ``evaluate("val")`` through K4 (16 launches per snapshot, warm steps
+   included) and with ``mode="ref"``; the first train steps held step by
+   step (loss, every gradient, the carried state); ``train_epoch()``
+   through K4 and val MRR after it; a mid-epoch checkpoint with
+   ``chunk_size``, resumed to the uninterrupted epoch's bits; the plain
+   epoch and a plain control from parameters scaled by 1 + 1e-7; GCN and
+   T-GCN ``evaluate("val")`` against their plain versions.
 
 ``--profile`` adds ``profile`` (host-clock time per batch of the warm pass,
 and per scored val batch of the hooks, the model step and the metric, each
@@ -43,8 +60,12 @@ val batches: device busy time, idle share, device time by kernel name),
 ``PrefetchLoader``'s thread), ``spread`` (loss and val MRR of several
 free-running kernel and perturbed plain epochs), ``train_profile`` (per
 train step: the next batch, forward, backward with K2, AdamW, each closed
-by a synchronise) and ``train_trace`` (the profiler over train steps as
-``train_epoch`` runs them). Then the ``{"kernels":
+by a synchronise), ``train_trace`` (the profiler over train steps as
+``train_epoch`` runs them), ``dtdg_profile`` (a GCLSTM train step split
+into forward, backward and AdamW; the profiler over train steps and scored
+val pairs), ``dtdg_spread`` (loss and val MRR of free-running K4 and plain
+epochs) and ``dtdg_parity`` (the step parity over more steps). Then the
+``{"kernels":
 [...]}`` summary, the card's name and power limit as nvidia-smi reports
 them, and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
@@ -91,6 +112,22 @@ GRAD_RTOL, GRAD_FLOOR = 1e-4, 1e-7
 PARITY_STEPS = 20
 EPOCH_LOSS_TOL = 3e-3
 TRAIN_MRR_TOL = 5e-3
+# DTDG phase (GCLSTM, hourly snapshots). A step from the same parameters,
+# K4 against the plain version: loss within DTDG_STEP_LOSS_TOL, every
+# whole-model gradient within GRAD_RTOL of its leaf's largest entry (+
+# GRAD_FLOOR); over 200 steps on an H100 the largest error was 0.13 of that.
+# A free-running epoch through K4 against the plain epoch from the same
+# start: DTDG_EPOCH_LOSS_TOL in the mean loss and DTDG_MRR_TOL in val MRR
+# after it. K4 epochs are bit-reproducible; the plain version's index_add_
+# adds with float atomics, so each plain epoch is its own trajectory. Over
+# 40 plain epochs on an H100 (from the same start, or from parameters scaled
+# by 1 + c * 1e-7; ``--profile``'s ``dtdg_spread`` and the control runs,
+# NVIDIA H100 80GB HBM3, 700 W) the largest distance from the K4 epoch was
+# 8.86e-6 in loss and 1.71e-3 in MRR; the limits are ~3x that.
+DTDG_STEP_LOSS_TOL = 1e-5
+DTDG_PROFILE_PARITY_STEPS = 200
+DTDG_EPOCH_LOSS_TOL = 2.5e-5
+DTDG_MRR_TOL = 5e-3
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 on the CUDA
 # cores and HBM3 bandwidth; they assume the 700 W power limit.
@@ -106,6 +143,8 @@ BWD_SOURCE = "src/repro_torch/kernels/temporal_attention/csrc/fused_temporal_lay
 TPU_K1 = "src/repro/kernels/temporal_attention/kernel.py:383"
 TPU_K1W = "src/repro/kernels/temporal_attention/kernel.py:746"
 TPU_K2 = "src/repro/kernels/temporal_attention/kernel.py:626"
+SEG_SOURCE = "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu"
+TPU_K4 = "src/repro/kernels/segment_reduce/kernel.py:47"
 DEVICE = "cuda"
 
 
@@ -752,6 +791,445 @@ def prefetch_check(torch, pipe, n_steps: int = 60):
             "sink_row_entries_differing": sink_diffs}
 
 
+# ---------------------------------------------------------------------------
+# DTDG slice: K4 (segment sum) and the snapshot link pipeline
+# ---------------------------------------------------------------------------
+def dtdg_experiment(model: str = "gclstm"):
+    """Table 3's DTDG configuration at full data scale: hourly snapshots of
+    synthetic ``wikipedia`` (9,000 nodes, 720 snapshots of capacity 256),
+    ``model`` with ``d_embed`` 64 (``d_node`` 256), AdamW lr 1e-3, one
+    train and 20 eval negatives per edge."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
+
+    return Experiment(data=DataSpec("wikipedia", scale=1.0, discretization="h"),
+                      model=ModelSpec(model, {"d_embed": 64}),
+                      train=TrainSpec(eval_negatives=20))
+
+
+def segment_bound(n_kept, E, D, G):
+    """Least time (ms) for one segment sum: ids and edge rows read once, the
+    (G, D) output written once; one add per element of a kept edge row.
+    Returns (bound_ms, bound_by, bytes, flops)."""
+    return _bound(4 * (E * D + E + G * D), n_kept * D)
+
+
+def dtdg_kernels_phase(torch, data):
+    """K4 against its plain version on the card at the main path's shapes
+    (the largest hourly snapshot, E = 256 ids, and the largest daily one,
+    E = 2,048, over G = 9,000 nodes, at the layer's widths D = 1 and 64;
+    padding edges carry id 0 and zero rows, as the GCN layer gives them)
+    and on degenerate inputs. Times by CUDA events for the kernel, its plain
+    version and ``index_add_`` into zeros (the one PyTorch call computing
+    the same function here): per call over back-to-back calls, which at
+    these sizes measures the host's launch rate as much as the device; and
+    the device time per call from ``torch.profiler`` (``*_device_us``, the
+    sum of the device kernels one call launches). Also: a second launch
+    bit-equal to the first, and the kernel's sums against the CPU's
+    edge-order ``index_add_``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import snapshot_tensor
+    from repro_torch.kernels.segment_reduce import segment_sum_kernel, segment_sum_ref
+
+    def device_us(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / n
+
+    gen = torch.Generator().manual_seed(4)
+    G = data.num_nodes
+    results, cases = {}, []
+    for unit in ("h", "d"):
+        st = snapshot_tensor(data, unit, device=DEVICE)
+        r = int(torch.argmax(st.counts))
+        ids, mask = st.src[r].contiguous(), st.mask[r]
+        E, kept = ids.shape[0], int(st.counts[r])
+        for D in (1, 64):
+            x = (torch.randn((E, D), generator=gen).to(DEVICE)
+                 * mask[:, None]).contiguous()
+            got = segment_sum_kernel(x, ids, G)
+            err = compare(torch, got, segment_sum_ref(x, ids, G),
+                          f"K4 {unit} E={E} D={D}")
+            again = segment_sum_kernel(x, ids, G)
+            cpu = segment_sum_ref(x.cpu(), ids.cpu(), G)
+            bound, by, nbytes, flops = segment_bound(E, E, D, G)
+            kern = lambda: segment_sum_kernel(x, ids, G)  # noqa: E731
+            plain = lambda: segment_sum_ref(x, ids, G)  # noqa: E731
+            lib = lambda: torch.zeros((G, D), device=DEVICE).index_add_(0, ids, x)  # noqa: E731
+            results[f"{unit}_d{D}"] = dict(
+                E=E, valid_edges=kept, D=D, G=G, max_abs_err=err,
+                rerun_bitwise_equal=bool(torch.equal(again, got)),
+                bitwise_equal_to_cpu_index_add=bool(torch.equal(got.cpu(), cpu)),
+                ms=time_ms(torch, kern, 200), plain_ms=time_ms(torch, plain, 200),
+                library_ms=time_ms(torch, lib, 200), device_us=device_us(kern),
+                plain_device_us=device_us(plain), library_device_us=device_us(lib),
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+            check(results[f"{unit}_d{D}"]["rerun_bitwise_equal"],
+                  f"K4 {unit} D={D}: a second launch gave other bits")
+
+    def case(name, E, D, ids, g=G):
+        x = torch.randn((E, D), generator=gen).to(DEVICE)
+        ids = ids.to(torch.int32).to(DEVICE)
+        got = segment_sum_kernel(x, ids, g)
+        err = compare(torch, got, segment_sum_ref(x, ids, g), f"K4 {name}")
+        hit = torch.zeros(g, dtype=torch.bool, device=DEVICE)
+        kept = ids[(ids >= 0) & (ids < g)].long()
+        hit[kept] = True
+        check(bool((got[~hit] == 0).all()), f"K4 {name}: empty segments not zero")
+        cases.append({"case": name, "E": E, "D": D, "G": g, "max_abs_err": err})
+
+    def ids(lo, hi, E):
+        return torch.randint(lo, hi, (E,), generator=gen)
+
+    case("all_equal", 256, 64, torch.full((256,), 17))
+    case("all_dropped", 256, 64, torch.full((256,), -1))
+    case("out_of_range", 256, 64, ids(-1, G + 50, 256))
+    case("e1", 1, 64, ids(0, G, 1))
+    case("e0", 0, 64, ids(0, G, 0))
+    case("d33", 256, 33, ids(0, G, 256))
+    case("d3_g5_dups", 300, 3, ids(0, 5, 300), g=5)
+    case("e5000_chunks", 5000, 64, ids(-1, G, 5000))
+    case("sorted", 2048, 64, torch.sort(ids(-1, G, 2048)).values)
+    return results, cases
+
+
+def _tree_clone(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _trees_equal(torch, a, b):
+    return _flat(a).keys() == _flat(b).keys() and all(
+        torch.equal(x, y) for x, y in zip(_flat(a).values(), _flat(b).values()))
+
+
+def dtdg_eval(torch, pipe, mode):
+    """``evaluate("val")`` with ``pipe.mode = mode``, the launch count
+    zeroed just before it and read just after."""
+    from repro_torch.kernels.segment_reduce import LAUNCHES, reset_launches
+
+    pipe.mode = mode
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    mrr, _ = pipe.evaluate("val")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(math.isfinite(mrr) and 0.0 < mrr <= 1.0, f"DTDG val MRR {mrr}")
+    return dict(mrr=mrr, seconds=wall, launches=LAUNCHES["segment_sum"])
+
+
+def dtdg_epoch(torch, pipe, mode):
+    """One ``train_epoch()`` with ``pipe.mode = mode`` (launch count zeroed
+    just before it and read just after), then val MRR."""
+    from repro_torch.kernels.segment_reduce import LAUNCHES, reset_launches
+
+    lo, hi = pipe._split_pairs("train")
+    pipe.mode = mode
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    loss, _ = pipe.train_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = LAUNCHES["segment_sum"]
+    out = dict(loss=loss, epoch_seconds=wall,
+               ms_per_pair=1e3 * wall / max(hi - lo, 1), launches=launches)
+    out["val_mrr"] = dtdg_eval(torch, pipe, mode)["mrr"]
+    check(math.isfinite(loss), f"DTDG epoch loss {loss}")
+    return out
+
+
+def dtdg_step_parity(torch, pipe, n_steps):
+    """The first ``n_steps`` train steps, each from the same parameters and
+    carried state through K4 and through the plain version: the loss within
+    DTDG_STEP_LOSS_TOL, every whole-model gradient within GRAD_RTOL of its
+    leaf's largest entry (+ GRAD_FLOOR), the new state within the kernel
+    tolerances; ``grad_tolerance_share`` is the largest error over its
+    tolerance. The kernels' update moves the run on."""
+    from repro_torch.models.tg.common import bce_link_loss
+
+    def tensors(state):
+        return state if isinstance(state, tuple) else (state,)
+
+    lo, _ = pipe._split_pairs("train")
+    xs = pipe._pair_xs(lo, lo + n_steps, pipe.num_negatives)
+    pipe.reset_epoch_state()
+    worst = {"loss": 0.0, "model_grad_rel": 0.0, "model_grad_name": None,
+             "grad_tolerance_share": 0.0, "state_max_abs_err": 0.0}
+    for i in range(n_steps):
+        x = {k: v[i] for k, v in xs.items()}
+        out = {}
+        for mode in ("ref", "auto"):
+            pipe.mode = mode
+            pos, neg, st = pipe._scores(pipe.params, x, pipe.model_state)
+            loss = bce_link_loss(pos, neg, x["nmask"])
+            out[mode] = (loss.detach(), pipe._grads(loss), st)
+        (loss, grads, st), (loss_ref, grads_ref, st_ref) = out["auto"], out["ref"]
+        dl = abs(loss.item() - loss_ref.item())
+        check(dl <= DTDG_STEP_LOSS_TOL,
+              f"DTDG train step {i}: loss {loss.item()} (K4) vs "
+              f"{loss_ref.item()} (plain)")
+        worst["loss"] = max(worst["loss"], dl)
+        flat_ref = _flat(grads_ref)
+        for name, g in _flat(grads).items():
+            want = flat_ref[name]
+            e, scale = float((g - want).abs().max()), float(want.abs().max())
+            tol = GRAD_RTOL * scale + GRAD_FLOOR
+            check(e <= tol, f"DTDG train step {i}: gradient {name} off by "
+                            f"{e:.3e} (largest entry {scale:.3e})")
+            worst["grad_tolerance_share"] = max(worst["grad_tolerance_share"],
+                                                e / tol)
+            if scale and e / scale > worst["model_grad_rel"]:
+                worst.update(model_grad_rel=e / scale, model_grad_name=name)
+        for a_, b_ in zip(tensors(st), tensors(st_ref)):
+            worst["state_max_abs_err"] = max(
+                worst["state_max_abs_err"],
+                compare(torch, a_.detach(), b_.detach(), f"DTDG step {i} state"))
+        pipe._update(grads)
+        pipe.model_state = (tuple(t.detach() for t in st) if isinstance(st, tuple)
+                            else st.detach())
+    pipe.mode = "auto"
+    torch.cuda.synchronize()
+    return worst
+
+
+def dtdg_phase(torch, data):
+    """The DTDG slice through the user's entry point on full-scale
+    wikipedia, hourly snapshots: the ``SnapshotTensor`` built on the card
+    (bit-equal to the CPU build, build seconds); GCLSTM ``evaluate("val")``
+    through K4 (16 launches per snapshot: the advance-only warm steps and
+    the scored pairs) and with ``mode="ref"`` from the same parameters; the
+    first train steps held step by step; one ``train_epoch()`` through K4
+    (16 launches per pair; the backward is a gather) and val MRR after it;
+    a mid-epoch checkpoint round trip with ``chunk_size`` resumed to the
+    same bits as the uninterrupted epoch; the plain epoch from the same
+    start and a plain control from parameters scaled by 1 + 1e-7, held to
+    DTDG_EPOCH_LOSS_TOL and DTDG_MRR_TOL; last, GCN and T-GCN
+    ``evaluate("val")`` through K4 against the plain version."""
+    import shutil
+
+    from repro_torch.core import snapshot_tensor
+    from repro_torch.tree import tree_map
+
+    t = time.perf_counter()
+    st_cpu = snapshot_tensor(data, "h", device="cpu")
+    cpu_s = time.perf_counter() - t
+    build_s = []
+    for _ in range(2):  # the first build includes the card's warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = snapshot_tensor(data, "h", device=DEVICE)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t)
+    for name in ("src", "dst", "mask", "counts"):
+        a, b = getattr(st, name), getattr(st_cpu, name)
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+              f"SnapshotTensor {name}: the card's build differs from the CPU's")
+    check((st.t0, st.ticks, st.capacity) == (st_cpu.t0, st_cpu.ticks,
+                                            st_cpu.capacity), "SnapshotTensor meta")
+    snap = dict(num_snapshots=st.num_snapshots, capacity=st.capacity,
+                classes=int(st.counts.sum()), largest=int(st.counts.max()),
+                cpu_build_seconds=cpu_s, card_build_seconds=build_s,
+                bit_equal_to_cpu=True)
+
+    t = time.perf_counter()
+    pipe = dtdg_experiment().compile(data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+    train, val = pipe._split_pairs("train"), pipe._split_pairs("val")
+    n_train, n_val = train[1] - train[0], val[1] - val[0]
+
+    ev = dtdg_eval(torch, pipe, "auto")
+    expected = 16 * val[1]  # warm steps over pairs [0, val lo), then scored
+    check(ev["launches"] == expected,
+          f"GCLSTM eval launched K4 {ev['launches']} times, expected {expected}")
+    ev_ref = dtdg_eval(torch, pipe, "ref")
+    check(ev_ref["launches"] == 0, "mode='ref' launched K4")
+    check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
+          f"GCLSTM val MRR {ev['mrr']} (K4) vs {ev_ref['mrr']} (plain)")
+
+    parity = dtdg_step_parity(torch, pipe, PARITY_STEPS)
+
+    def restart(scale=1.0):
+        pipe.load_params(tree_map(lambda t: t * scale, init[0]))
+        pipe.load_opt_state(init[1])
+
+    restart()
+    run = dtdg_epoch(torch, pipe, "auto")
+    check(run["launches"] == 16 * n_train,
+          f"GCLSTM epoch launched K4 {run['launches']} times for {n_train} pairs")
+    final = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    # Mid-epoch checkpoint round trip: two chunks, save, clobber, restore,
+    # finish the epoch; K4 and the rest of the step are deterministic, so
+    # the result is the uninterrupted epoch's to the bit.
+    ck_dir = ROOT / "checkpoints" / "chip_smoke_dtdg"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        restart()
+        pipe.chunk_size = 100
+        first = pipe.train_chunk() + pipe.train_chunk()
+        saved = (_tree_clone(pipe.params), _tree_clone(pipe.opt_state),
+                 tuple(t.clone() for t in pipe.model_state), pipe.snapshot_cursor)
+        pipe.save_checkpoint(str(ck_dir), 3)
+        restart()
+        pipe.reset_epoch_state()
+        pipe._cursor = 0
+        check(pipe.restore_checkpoint(str(ck_dir)) == 3, "DTDG checkpoint step")
+        check(_trees_equal(torch, pipe.params, saved[0])
+              and _trees_equal(torch, pipe.opt_state, saved[1])
+              and all(torch.equal(a, b) for a, b in zip(pipe.model_state, saved[2]))
+              and pipe.snapshot_cursor == saved[3] == 200,
+              "DTDG checkpoint round trip changed the state")
+        check(pipe.params["emb"].device == pipe.device, "restored off the card")
+        rest_loss, _ = pipe.train_epoch()
+        check(_trees_equal(torch, pipe.params, final[0])
+              and _trees_equal(torch, pipe.opt_state, final[1]),
+              "the resumed epoch's parameters differ from the uninterrupted one's")
+        combined = (sum(first) + rest_loss * (n_train - 200)) / n_train
+        check(abs(combined - run["loss"]) <= 1e-6 * abs(run["loss"]),
+              f"resumed epoch loss {combined} vs {run['loss']}")
+    finally:
+        pipe.chunk_size = None
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    restart()
+    plain = dtdg_epoch(torch, pipe, "ref")
+    check(plain["launches"] == 0, "mode='ref' launched K4 in training")
+    restart(1 + 1e-7)
+    control = dtdg_epoch(torch, pipe, "ref")
+    dl, dm = abs(run["loss"] - plain["loss"]), abs(run["val_mrr"] - plain["val_mrr"])
+    check(dl <= DTDG_EPOCH_LOSS_TOL,
+          f"GCLSTM epoch loss {run['loss']} (K4) vs {plain['loss']} (plain)")
+    check(dm <= DTDG_MRR_TOL,
+          f"GCLSTM val MRR after the epoch {run['val_mrr']} (K4) vs "
+          f"{plain['val_mrr']} (plain)")
+
+    others = {}
+    for name, per in (("gcn", 8), ("tgcn", 12)):
+        p = dtdg_experiment(name).compile(data=data, device=DEVICE)
+        a, b = dtdg_eval(torch, p, "auto"), dtdg_eval(torch, p, "ref")
+        lo, hi = p._split_pairs("val")
+        want = per * ((hi - lo) if name == "gcn" else hi)
+        check(a["launches"] == want and b["launches"] == 0,
+              f"{name} eval launched K4 {a['launches']} times, expected {want}")
+        check(abs(a["mrr"] - b["mrr"]) <= MRR_TOL,
+              f"{name} val MRR {a['mrr']} (K4) vs {b['mrr']} (plain)")
+        others[name] = dict(kernel=a, plain=b)
+        del p
+
+    return dict(snapshots=snap, setup_seconds=setup_s, train_pairs=n_train,
+                val_pairs=n_val, val_lo=val[0], eval=ev, eval_ref=ev_ref,
+                step_parity=dict(steps=PARITY_STEPS, **parity), kernels=run,
+                plain=plain, control_scaled_1e7=control, loss_diff=dl,
+                mrr_diff=dm,
+                control_loss_diff=abs(control["loss"] - plain["loss"]),
+                control_mrr_diff=abs(control["val_mrr"] - plain["val_mrr"]),
+                checkpoint_resume_bit_equal=True, other_models=others)
+
+
+def dtdg_profile_phase(torch, data, n_steps: int = 100, n_window: int = 30):
+    """``--profile``: where a GCLSTM train step's time goes, by host clock
+    with a synchronise closing each part (forward and loss, backward, AdamW;
+    steady steps after the first 10), then ``torch.profiler`` over
+    ``n_window`` train steps and over ``n_window`` scored val pairs as the
+    pipeline runs them (no synchronise inside): device busy time, idle
+    share, device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.tg.common import bce_link_loss
+
+    pipe = dtdg_experiment().compile(data=data, device=DEVICE)
+    sync = torch.cuda.synchronize
+    lo, _ = pipe._split_pairs("train")
+    xs = pipe._pair_xs(lo, lo + n_steps + n_window, pipe.num_negatives)
+    pipe.reset_epoch_state()
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(n_steps):
+        x = {k: v[i] for k, v in xs.items()}
+        sync()
+        t0 = time.perf_counter()
+        pos, neg, st = pipe._scores(pipe.params, x, pipe.model_state)
+        loss = bce_link_loss(pos, neg, x["nmask"])
+        sync()
+        t1 = time.perf_counter()
+        grads = pipe._grads(loss)
+        sync()
+        t2 = time.perf_counter()
+        pipe._update(grads)
+        pipe.model_state = tuple(t.detach() for t in st)
+        sync()
+        t3 = time.perf_counter()
+        for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                        ("optimizer", t2, t3)):
+            parts[k].append(1e3 * (b - a))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps, n_steps + n_window):
+            pipe._train_step({k: v[i] for k, v in xs.items()})
+        sync()
+        train_us = 1e6 * (time.perf_counter() - t0)
+    train_window = device_window(prof, train_us)
+    vlo, _ = pipe._split_pairs("val")
+    vxs = pipe._pair_xs(vlo, vlo + n_window, pipe.eval_negatives)
+    state = pipe._init_state()
+    sync()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_window):
+            state, _, _ = pipe._eval_step(state, {k: v[i] for k, v in vxs.items()})
+        sync()
+        eval_us = 1e6 * (time.perf_counter() - t0)
+    return {"train_step_ms": {k: statistics.median(v[10:]) for k, v in parts.items()},
+            "steps": n_steps, "train_trace": {"steps": n_window, **train_window},
+            "eval_trace": {"pairs": n_window, **device_window(prof, eval_us)}}
+
+
+def dtdg_spread_phase(torch, data, rounds: int = 6):
+    """``--profile``: the spread of free-running GCLSTM epochs on the card,
+    from which DTDG_EPOCH_LOSS_TOL and DTDG_MRR_TOL are set: two K4 epochs
+    from the same start (K4 is deterministic, so they should agree to the
+    bit), ``rounds`` plain epochs from the same start (``index_add_``'s
+    float atomics make each its own trajectory) and ``rounds`` plain epochs
+    from parameters scaled by 1 + c * 1e-7, each against the first K4
+    epoch; and the largest distance between two plain epochs."""
+    from repro_torch.tree import tree_map
+
+    pipe = dtdg_experiment().compile(data=data, device=DEVICE)
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    def epoch(mode, scale=1.0):
+        pipe.load_params(tree_map(lambda t: t * scale, init[0]))
+        pipe.load_opt_state(init[1])
+        r = dtdg_epoch(torch, pipe, mode)
+        return r["loss"], r["val_mrr"]
+
+    base = epoch("auto")
+    runs = [("kernel", epoch("auto"))]
+    runs += [("plain", epoch("ref")) for _ in range(rounds)]
+    runs += [(f"plain x(1{c:+d}e-7)", epoch("ref", 1 + c * 1e-7))
+             for c in (1, -1, 2, -2, 3, -3)[:rounds]]
+    plains = [r for name, r in runs if name.startswith("plain")]
+    return {"kernel": {"loss": base[0], "val_mrr": base[1]},
+            "runs": [{"run": name, "loss": l, "val_mrr": m,
+                      "loss_diff": abs(l - base[0]), "mrr_diff": abs(m - base[1])}
+                     for name, (l, m) in runs],
+            "max_loss_diff": max(abs(l - base[0]) for _, (l, _) in runs),
+            "max_mrr_diff": max(abs(m - base[1]) for _, (_, m) in runs),
+            "max_plain_pair_loss_diff": max(abs(a[0] - b[0]) for a in plains for b in plains),
+            "max_plain_pair_mrr_diff": max(abs(a[1] - b[1]) for a in plains for b in plains)}
+
+
 def spread_phase(torch, rounds: int = 3):
     """``--profile``: the spread of free-running train epochs on the card,
     from which EPOCH_LOSS_TOL and TRAIN_MRR_TOL are set: ``rounds`` kernel
@@ -937,7 +1415,6 @@ def trace_phase(torch, pipe, n_batches: int = 30, train: bool = False):
     device events' intervals; the idle share is one minus busy over the
     window's host-clock time (closed by a synchronise). Also the device time
     by kernel name, largest first."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import EVAL_KEY, TRAIN_KEY
@@ -972,6 +1449,15 @@ def trace_phase(torch, pipe, n_batches: int = 30, train: bool = False):
                 mrr(pos, neg, batch["batch_mask"])
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
+    return {"batches": n_batches, **device_window(prof, wall_us)}
+
+
+def device_window(prof, wall_us):
+    """Device busy time (the union of the device events' intervals), idle
+    share (one minus busy over the window's host-clock time ``wall_us``) and
+    device time by kernel name, largest first, of a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0.0, -math.inf
@@ -983,7 +1469,7 @@ def trace_phase(torch, pipe, n_batches: int = 30, train: bool = False):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {"batches": n_batches, "device_events": len(dev),
+    return {"device_events": len(dev),
             "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "device_ms_by_name": {k: v / 1e3 for k, v in top}}
@@ -1041,6 +1527,21 @@ def main() -> int:
             "model_grad_floor": GRAD_FLOOR, "epoch_loss": EPOCH_LOSS_TOL,
             "val_mrr": TRAIN_MRR_TOL}, **tr})
 
+        from repro_torch.data import generate
+
+        wiki = generate("wikipedia", scale=1.0)
+        seg, seg_cases = dtdg_kernels_phase(torch, wiki)
+        emit({"phase": "dtdg_kernels", "tolerance": {"atol": ATOL, "rtol": RTOL},
+              "peaks": {"f32_flops": PEAK_F32_FLOPS, "bytes_per_s": PEAK_BYTES},
+              "shapes": seg, "degenerate": seg_cases})
+
+        dt = dtdg_phase(torch, wiki)
+        emit({"phase": "dtdg", "tolerance": {
+            "val_mrr": MRR_TOL, "step_loss": DTDG_STEP_LOSS_TOL,
+            "model_grad_rtol": GRAD_RTOL, "model_grad_floor": GRAD_FLOOR,
+            "epoch_loss": DTDG_EPOCH_LOSS_TOL, "epoch_val_mrr": DTDG_MRR_TOL},
+            **dt})
+
         if "--profile" in sys.argv[1:]:
             pipe, prof = profile_phase(torch)
             emit({"phase": "profile", **prof})
@@ -1050,12 +1551,18 @@ def main() -> int:
             pipe, prof = train_profile_phase(torch)
             emit({"phase": "train_profile", **prof})
             emit({"phase": "train_trace", **trace_phase(torch, pipe, train=True)})
+            emit({"phase": "dtdg_profile", **dtdg_profile_phase(torch, wiki)})
+            emit({"phase": "dtdg_spread", **dtdg_spread_phase(torch, wiki)})
+            pipe = dtdg_experiment().compile(data=wiki, device=DEVICE)
+            emit({"phase": "dtdg_parity",
+                  **dtdg_step_parity(torch, pipe, DTDG_PROFILE_PARITY_STEPS)})
     except Exception as exc:  # any failed phase: no result line
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)
         return 1
 
     k1, k1w, k2 = results["K1_eval"], results["K1w_eval"], results["K2_train"]
+    k4 = seg["h_d64"]
     by_path = {
         "fused_temporal_layer": {
             "eval": sl["launches"]["fused_temporal_layer"],
@@ -1082,6 +1589,16 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "segment_sum", "route": "cuda",
+        "source": SEG_SOURCE, "replaces": TPU_K4,
+        "launches": dt["eval"]["launches"] + dt["kernels"]["launches"],
+        "launches_by_path": {"dtdg_eval": dt["eval"]["launches"],
+                             "dtdg_train": dt["kernels"]["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in seg.values()),
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"], "shape": "E=256 D=64 G=9000",
     }], "wrappers_off_main_path": [{
         "name": "fused_recency_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1W,

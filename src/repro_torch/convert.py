@@ -6,7 +6,9 @@ reference's parameter pytree as nested dicts of numpy arrays (call
 ``jax.device_get`` on it first) and returns the same nesting of float32
 torch tensors; ``opt_state_from_jax`` does the same for an AdamW state
 ``{"mu", "nu", "step"}`` (int32 step), so both packages can start from the
-same parameters and optimizer state. Weights keep the reference's
+same parameters and optimizer state; ``state_from_jax`` moves a snapshot
+model's recurrent state (GCLSTM's ``(h, c)`` tuple, T-GCN's one array, the
+stateless GCN's ``()``). Weights keep the reference's
 ``(d_in, d_out)`` layout, so every public function computes ``x @ w + b``
 on both sides and nothing is transposed out of sight.
 """
@@ -45,3 +47,11 @@ def opt_state_to_numpy(state):
     return {"mu": params_to_numpy(state["mu"]),
             "nu": params_to_numpy(state["nu"]),
             "step": state["step"].detach().cpu().numpy()}
+
+
+def state_from_jax(state, device="cpu"):
+    """A snapshot model's recurrent state (numpy leaves: ``()``, one array,
+    or a tuple of arrays) -> the same layout of float32 tensors."""
+    if isinstance(state, (tuple, list)):
+        return tuple(state_from_jax(s, device) for s in state)
+    return torch.as_tensor(np.array(state, dtype=np.float32), device=device)

@@ -6,10 +6,11 @@ lightweight *view*: a (storage, t_lo, t_hi, granularity) tuple that is O(1)
 to create and concurrency-safe because the storage is immutable.
 
 Root storage lives in host numpy; batches are moved to the device by the
-hook pipeline (``DeviceTransferHook``). Host-only numpy copy of
-``repro.core.graph`` (bit-equal); the CSV adapter, the DTDG
-``SnapshotTensor`` view, the out-of-core store adapters and discretization
-are not part of the port yet.
+hook pipeline (``DeviceTransferHook``). Host numpy copy of
+``repro.core.graph`` (bit-equal), with discretization delegating to
+``core.discretize`` and the DTDG ``SnapshotTensor`` view, whose tensors
+``core.loader.snapshot_tensor`` builds on the device. The CSV adapter and
+the out-of-core store adapters are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -231,6 +232,93 @@ class DGData:
             else int(np.searchsorted(self.node_t, t_hi, "left"))
         )
         return lo, hi
+
+    # ------------------------------------------------------------------
+    # Discretization (delegates; see core/discretize.py and core/loader.py)
+    # ------------------------------------------------------------------
+    def discretize(
+        self,
+        granularity: TimeDelta | str,
+        reduce: str = "first",
+        backend: str = "numpy",
+    ) -> "DGData":
+        """Coarsen to ``granularity`` via ``psi_r`` on the host
+        (``core/discretize.py``; ``backend="numpy"`` only)."""
+        from repro_torch.core.discretize import discretize as _disc
+
+        return _disc(self, TimeDelta.coerce(granularity), reduce=reduce,
+                     backend=backend)
+
+    def to_snapshots(
+        self,
+        granularity: TimeDelta | str,
+        capacity: Optional[int] = None,
+        device="cuda",
+    ) -> "SnapshotTensor":
+        """Tensorize this storage into a ``SnapshotTensor`` on ``device``
+        (delegates to ``core.loader.snapshot_tensor``)."""
+        from repro_torch.core.loader import snapshot_tensor
+
+        return snapshot_tensor(self, granularity, capacity=capacity,
+                               device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotTensor:
+    """Device-resident DTDG view: the discretized stream as padded tensors.
+
+    Built once per (storage, granularity) by ``core.loader.snapshot_tensor``,
+    which collapses duplicate ``(tick, src, dst)`` classes on the device and
+    lays the classes out snapshot-major:
+
+      ``src``/``dst`` : (T, capacity) int32, zero where padded
+      ``mask``        : (T, capacity) bool edge-validity mask
+      ``counts``      : (T,) int32 valid edges per snapshot (empty windows
+                        are all-False rows)
+
+    Row ``i`` is the snapshot ``G|_[(t0+i)*k, (t0+i+1)*k)`` of the source
+    stream (``k`` = ``ticks`` native ticks per snapshot). Every row has the
+    same shape, so a whole epoch runs one step function over the rows.
+    """
+
+    src: object
+    dst: object
+    mask: object
+    counts: object
+    t0: int
+    ticks: int
+    unit: TimeDelta
+    num_nodes: int
+
+    @property
+    def num_snapshots(self) -> int:
+        """T: number of snapshot rows (including empty windows)."""
+        return int(self.src.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        """Fixed per-snapshot edge capacity (padded width)."""
+        return int(self.src.shape[1])
+
+    def row(self, i: int) -> dict:
+        """One snapshot's padded tensors: ``{src, dst, snap_mask}``."""
+        return {"src": self.src[i], "dst": self.dst[i],
+                "snap_mask": self.mask[i]}
+
+    def row_of_time(self, t: int) -> int:
+        """Snapshot row index containing native-granularity time ``t``."""
+        return int(t) // self.ticks - self.t0
+
+    def negatives(self, seed: int, num_negatives: int, rows=None):
+        """Per-snapshot negative destinations ``(R, capacity, m)`` int32 on
+        this view's device for ``rows`` (default: every snapshot); pure in
+        ``(seed, m, row)`` (``core.negatives.snapshot_negatives``)."""
+        from repro_torch.core.negatives import snapshot_negatives
+
+        if rows is None:
+            rows = np.arange(self.num_snapshots)
+        return snapshot_negatives(seed, self.num_nodes, self.capacity,
+                                  num_negatives, rows, device=self.src.device)
 
 
 class DGraph:

@@ -15,7 +15,10 @@ pipeline, and returned as a ``Batch``.
 a daemon thread runs the inner loader (materialization and every hook) one
 batch or more ahead and stages each batch's host arrays on the device, with
 a bounded queue for back-pressure (see its docstring for the CUDA streams).
-The reference's ``snapshot_tensor`` waits for the snapshot slice.
+
+``snapshot_tensor`` tensorizes a stream into the DTDG ``SnapshotTensor``
+view on the device: the discretization core and the snapshot-major layout
+run in tensor ops there.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.batch import Batch
-from repro_torch.core.graph import DGraph
+from repro_torch.core.graph import DGData, DGraph, SnapshotTensor
 from repro_torch.core.granularity import TimeDelta
 from repro_torch.core.hooks import HookManager
 from repro_torch.device import resolve_device
@@ -362,3 +365,106 @@ class PrefetchLoader:
             stop.set()
         for stop, thread in active:
             thread.join(timeout=5)
+
+
+def _tensorize_snapshots(usrc, udst, uct, count, *, num_rows: int,
+                         capacity: int):
+    """Scatter tick-major discretized events into ``(T, capacity)`` grids.
+
+    Inputs are the padded outputs of ``discretize_edges_padded`` (or the
+    host fallback's classes) with ``uct`` already shifted to zero-based row
+    ticks and kept sorted (padding carries a large sentinel beyond
+    ``count``), so the per-row extents come from one ``searchsorted``.
+    Events beyond a row's ``capacity`` go to a sink slot past the grid and
+    are sliced off, as the reference's scatter drops them; callers size
+    ``capacity`` to the largest row to make that impossible by construction.
+    """
+    dev = usrc.device
+    g = usrc.shape[0]
+    idx = torch.arange(g, dtype=torch.int32, device=dev)
+    valid = idx < count
+    starts = torch.searchsorted(
+        uct, torch.arange(num_rows, dtype=torch.int32, device=dev),
+        right=False, out_int32=True)
+    row = uct.clamp(0, num_rows - 1).long()
+    pos = idx - starts[row]
+    ok = valid & (pos < capacity)
+    flat = torch.where(ok, row * capacity + pos, num_rows * capacity)
+    size = num_rows * capacity
+
+    def grid(fill, dtype, values):
+        out = torch.full((size + 1,), fill, dtype=dtype, device=dev)
+        return out.index_copy_(0, flat, values)[:size].reshape(num_rows, capacity)
+
+    bounds = torch.cat([starts, count.reshape(1).to(torch.int32)])
+    counts = torch.diff(bounds).clamp(0, capacity)
+    return (grid(0, torch.int32, usrc), grid(0, torch.int32, udst),
+            grid(False, torch.bool, ok), counts)
+
+
+def snapshot_tensor(
+    data: DGData,
+    granularity: TimeDelta | str,
+    capacity: Optional[int] = None,
+    device="cuda",
+) -> SnapshotTensor:
+    """Tensorize a stream into the ``SnapshotTensor`` view on ``device``.
+
+    The fixed-capacity discretization core (``discretize_edges_padded``)
+    collapses duplicate ``(tick, src, dst)`` classes at the target
+    granularity on the device, then one scatter (``_tensorize_snapshots``)
+    lays them out as padded ``(T, capacity)`` src/dst/mask tensors. The only
+    host reads are build-time bookkeeping (the valid count and the per-row
+    extents that choose the capacity). Graphs beyond the int32 guard
+    (``device_discretize_supported``) are discretized on the host with
+    numpy and then laid out on the device the same way.
+
+    ``capacity`` defaults to the largest per-snapshot edge count rounded up
+    to a power of two; a smaller value drops each oversized snapshot's tail.
+    """
+    from repro_torch.core.discretize import (
+        _coarse_ticks,
+        _host_ticks,
+        device_discretize_supported,
+        discretize_edges_padded,
+    )
+
+    dev = resolve_device(device)
+    unit = TimeDelta.coerce(granularity)
+    k = _coarse_ticks(data, unit)
+    e = data.num_edge_events
+    span = data.time_span
+    t0, t_end = span[0] // k, span[1] // k
+    num_rows = max(int(t_end - t0) + 1, 1)
+
+    def stage(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    if e and device_discretize_supported(data, k, edges_only=True):
+        t_staged, k_dev = _host_ticks(data.edge_t, k)
+        usrc, udst, uct, _, count = discretize_edges_padded(
+            stage(data.src), stage(data.dst), stage(t_staged), None,
+            k=k_dev, reduce="first", capacity=e, feat_dim=0)
+        # Zero-base the row ticks for the scatter (t0 >= 0, so the padded
+        # int32-max sentinel shifts without wrapping and stays largest).
+        uct = uct - int(t0)
+    else:  # int32 guard tripped (or empty stream): host numpy fallback
+        disc = data.discretize(unit, reduce="first", backend="numpy")
+        usrc, udst = stage(disc.src), stage(disc.dst)
+        # Shift in int64 on the host: absolute ticks can exceed int32 (that
+        # is why this branch runs), relative ones cannot.
+        uct = stage(disc.edge_t - t0)
+        count = torch.tensor(disc.num_edge_events, dtype=torch.int32,
+                             device=dev)
+
+    g = int(count)
+    row_counts = np.bincount(uct[:g].cpu().numpy().astype(np.int64),
+                             minlength=num_rows)
+    if capacity is None:
+        capacity = int(2 ** np.ceil(np.log2(max(row_counts.max(), 1))))
+    src_g, dst_g, mask_g, counts = _tensorize_snapshots(
+        usrc, udst, uct, count, num_rows=num_rows, capacity=int(capacity))
+    return SnapshotTensor(
+        src=src_g, dst=dst_g, mask=mask_g, counts=counts,
+        t0=int(t0), ticks=int(k), unit=unit, num_nodes=int(data.num_nodes),
+    )

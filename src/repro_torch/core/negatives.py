@@ -7,7 +7,13 @@ Supports the standard protocols:
 
 Host numpy copy of ``repro.core.negatives.NegativeEdgeSampler``: the same
 ``np.random.default_rng`` stream, so draws are bit-equal to the reference.
-The DTDG ``snapshot_negatives`` waits for the DTDG slice of the port.
+
+``snapshot_negatives`` is the DTDG counterpart: per-snapshot corrupted
+destinations as a pure function of ``(seed, num_negatives, snapshot row)``.
+The reference draws them through ``jax.random.fold_in``, which torch cannot
+reproduce; the port keeps the property that matters (a row's draws depend
+on nothing else, on every device) with its own stream, and parity tests
+hand the reference's draws in.
 """
 
 from __future__ import annotations
@@ -15,6 +21,43 @@ from __future__ import annotations
 from typing import Optional, Set, Tuple
 
 import numpy as np
+import torch
+
+_MASK64 = (1 << 64) - 1
+
+
+def _row_seed(seed: int, num_negatives: int, row: int) -> int:
+    """A fixed 63-bit mix of ``(seed, num_negatives, row)`` (SplitMix64's
+    finalizer over a golden-ratio combination), the seed of one row's
+    generator."""
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(num_negatives) * 0xBF58476D1CE4E5B9
+         + int(row) * 0x94D049BB133111EB + 0x632BE59BD9B4E019) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
+def snapshot_negatives(seed: int, num_nodes: int, capacity: int,
+                       num_negatives: int, rows, device="cpu"):
+    """Deterministic per-snapshot negative destinations.
+
+    Returns a ``(len(rows), capacity, num_negatives)`` int32 tensor of
+    uniform node draws on ``device``. Row ``r`` is drawn by its own CPU
+    ``torch.Generator`` seeded from ``(seed, num_negatives, r)`` alone, so a
+    bulk draw over many rows equals any subset of it drawn alone (the
+    compiled-vs-hook parity invariant), a restored snapshot cursor replays
+    the same negatives, and the draws are the same on every device (they
+    are moved there afterwards).
+    """
+    hi = max(int(num_nodes), 1)
+    out = [torch.randint(0, hi, (capacity, num_negatives), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(
+                             _row_seed(seed, num_negatives, r)))
+           for r in np.asarray(rows, dtype=np.int64).reshape(-1).tolist()]
+    if not out:
+        return torch.zeros((0, capacity, num_negatives), dtype=torch.int32,
+                           device=device)
+    return torch.stack(out).to(device)
 
 
 class NegativeEdgeSampler:

@@ -4,8 +4,9 @@
 training negatives, one-vs-many eval negatives, device-resident recency
 neighbors, edge-feature lookup, padding and the device transfer. The port
 carries the device-recency branch of ``repro.core.recipes``
-(``SamplerSpec(kind="recency", device=True)``); the host and uniform
-samplers and the other recipes are not part of the port yet.
+(``SamplerSpec(kind="recency", device=True)``). ``RECIPE_DTDG_SNAPSHOT``
+builds the DTDG snapshot link pipeline's per-snapshot negatives. The host
+and uniform samplers and the other recipes are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ from repro_torch.core.tg_hooks import (
     EdgeFeatureLookupHook,
     NegativeEdgeHook,
     PadBatchHook,
+    SnapshotNegativeHook,
     TGBEvalNegativesHook,
 )
 
 RECIPE_TGB_LINK = "tgb_link"
+RECIPE_DTDG_SNAPSHOT = "dtdg_snapshot"
 
 TRAIN_KEY = "train"
 EVAL_KEY = "eval"
@@ -102,5 +105,33 @@ def _tgb_link(
                                          expose_buffer=spec.expose_buffer,
                                          edge_feats=edge_feats))
     m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))
+    m.register(DeviceTransferHook(device))
+    return m
+
+
+@RecipeRegistry.register(RECIPE_DTDG_SNAPSHOT)
+def _dtdg_snapshot(
+    num_nodes: Optional[int] = None,
+    capacity: Optional[int] = None,
+    num_negatives: int = 1,
+    eval_negatives: int = 20,
+    seed: int = 0,
+    device="cuda",
+) -> HookManager:
+    """Build the DTDG snapshot link-prediction hook pipeline.
+
+    With ``num_nodes``/``capacity`` given, registers per-snapshot negative
+    hooks (``SnapshotNegativeHook``, row-pure draws) under the train and
+    eval activation keys; without them, the recipe is the plain device
+    transfer.
+    """
+    m = HookManager()
+    if num_nodes is not None and capacity is not None:
+        m.register(SnapshotNegativeHook(num_nodes, capacity, num_negatives,
+                                        seed=seed, device=device),
+                   key=TRAIN_KEY)
+        m.register(SnapshotNegativeHook(num_nodes, capacity, eval_negatives,
+                                        seed=seed, device=device),
+                   key=EVAL_KEY)
     m.register(DeviceTransferHook(device))
     return m

@@ -4,8 +4,9 @@ PyTorch port of the device-sampling branch of ``repro.core.tg_hooks``:
 padding, train/eval negatives, device-resident recency neighbors (with the
 packed buffer exposed for the fused attention), edge-feature lookup and the
 device transfer. Negatives are drawn with numpy exactly as in the reference,
-so they are bit-equal. The host samplers, the uniform samplers and the
-analytics hooks are not part of the port yet.
+so they are bit-equal. ``SnapshotNegativeHook`` serves the DTDG snapshot
+recipe. The host samplers, the uniform samplers and the analytics hooks are
+not part of the port yet.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
 from repro_torch.core.hooks import Hook
-from repro_torch.core.negatives import NegativeEdgeSampler
+from repro_torch.core.negatives import NegativeEdgeSampler, snapshot_negatives
 from repro_torch.device import resolve_device
 
 _EDGE_TABLE_CACHE: OrderedDict = OrderedDict()
@@ -189,6 +190,58 @@ class DeviceRecencyNeighborHook(Hook):
         valid = _host(batch["batch_mask"]) if "batch_mask" in batch \
             else np.ones(n, bool)
         self.sampler.update(src, dst, t, eids_full, valid=valid)
+        return batch
+
+
+class SnapshotNegativeHook(Hook):
+    """Per-snapshot negative destinations for the DTDG link recipe.
+
+    Produces ``neg``: (capacity, num_negatives) int32 corrupted destinations
+    on ``device`` for the batch's (predicted) snapshot. The draws are a pure
+    function of ``(seed, num_negatives, snapshot row)``
+    (``core.negatives.snapshot_negatives``), the function the compiled
+    pipeline uses to draw a chunk's rows at once, so the hook path and the
+    compiled path are bit-identical.
+
+    The snapshot row comes from ``batch.meta['snapshot_row']`` when present
+    (how ``DTDGLinkPipeline`` drives the hook). Without it an internal cursor
+    advances one row per call; ``seek(row)`` positions it and
+    ``state_dict`` checkpoints it.
+    """
+
+    def __init__(self, num_nodes: int, capacity: int, num_negatives: int = 1,
+                 seed: int = 0, device="cuda"):
+        super().__init__(requires={"src"}, produces={"neg"})
+        self.num_nodes = int(num_nodes)
+        self.capacity = int(capacity)
+        self.num_negatives = int(num_negatives)
+        self._seed = int(seed)
+        self._device = resolve_device(device)
+        self._cursor = 0
+
+    def seek(self, row: int) -> None:
+        """Position the cursor at snapshot ``row`` (split boundaries)."""
+        self._cursor = int(row)
+
+    def reset_state(self) -> None:
+        """Rewind the snapshot cursor (start of an epoch)."""
+        self._cursor = 0
+
+    def state_dict(self) -> dict:
+        """Checkpoint the snapshot cursor (draws are cursor-derived)."""
+        return {"cursor": np.int64(self._cursor)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore the snapshot cursor."""
+        self._cursor = int(state["cursor"])
+
+    def __call__(self, batch: Batch) -> Batch:
+        """Attach this snapshot's deterministic negative draws."""
+        row = int(batch.meta.get("snapshot_row", self._cursor))
+        batch["neg"] = snapshot_negatives(
+            self._seed, self.num_nodes, self.capacity, self.num_negatives,
+            [row], device=self._device)[0]
+        self._cursor = row + 1
         return batch
 
 

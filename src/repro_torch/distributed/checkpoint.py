@@ -1,15 +1,16 @@
 """Crash-safe checkpoints in the reference's on-disk layout.
 
 Port of ``repro.distributed.checkpoint`` (``save``/``restore`` and their
-helpers) for nested dicts of tensors and numpy arrays:
+helpers) for nested dicts and tuples of tensors and numpy arrays:
 
   * step-numbered directories ``ckpt_<step>/`` holding ``manifest.json``
     (step, one entry per leaf with its ``/``-joined key, file, shape, dtype
     and byte size, and free-form ``extra`` metadata) and one
     ``leaf_<i>.npy`` per leaf;
   * leaves are numbered in JAX's flattening order (dict keys sorted at
-    every level), so keys and leaf files match the reference's, and a
-    checkpoint written by either package restores in the other;
+    every level, tuple entries by position, keyed by their index), so keys
+    and leaf files match the reference's, and a checkpoint written by
+    either package restores in the other;
   * writes go to ``ckpt_<step>.tmp``, every file and the directory are
     fsynced, then one atomic rename publishes it; a torn directory (leaf
     missing or of the wrong size) is skipped by ``latest_step``;
@@ -34,12 +35,17 @@ KEEP = 3  # checkpoints kept by retention, as the reference keeps by default
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(key, leaf)`` pairs in JAX's order: dict keys sorted, ``None``
-    (an empty subtree in JAX) skipped."""
+    """``(key, leaf)`` pairs in JAX's order: dict keys sorted, tuple and
+    list entries by index, ``None`` (an empty subtree in JAX) skipped."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten_with_paths(tree[k], f"{prefix}{k}/")
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = []
+        for i, v in enumerate(tree):
+            out += _flatten_with_paths(v, f"{prefix}{i}/")
         return out
     if tree is None:
         return []
@@ -160,8 +166,9 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, target=None):
     """Load a checkpoint; returns ``(tree, step, extra_meta)``.
 
     ``step=None`` takes the newest intact checkpoint. With ``target`` (a
-    nested-dict prototype) the leaves are reassembled into its structure
-    (``assemble``); without it a flat ``{key: array}`` dict is returned.
+    prototype of nested dicts and tuples) the leaves are reassembled into
+    its structure (``assemble``); without it a flat ``{key: array}`` dict
+    is returned.
     Leaves are numpy arrays."""
     if step is None:
         step = latest_step(ckpt_dir)
@@ -190,8 +197,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, target=None):
 
 def assemble(flat: Dict[str, Any], target):
     """Reassemble a flat ``{key: array}`` dict (``restore(target=None)``)
-    into ``target``'s nested-dict structure. Raises ``KeyError`` on leaves
-    the flat dict is missing."""
+    into ``target``'s structure of nested dicts and tuples. Raises
+    ``KeyError`` on leaves the flat dict is missing."""
     missing = [k for k, _ in _flatten_with_paths(target) if k not in flat]
     if missing:
         raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
@@ -200,6 +207,9 @@ def assemble(flat: Dict[str, Any], target):
         if isinstance(tree, dict):
             return {k: build(v, f"{prefix}{k}/") for k, v in tree.items()
                     if v is not None}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(build(v, f"{prefix}{i}/")
+                              for i, v in enumerate(tree))
         return flat[prefix[:-1]]
 
     return build(target, "")

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import use_kernel
 from repro_torch.kernels.temporal_attention.kernel import (
     fused_recency_attention_kernel,
     fused_temporal_layer_bwd_kernel,
@@ -45,16 +46,6 @@ _BWD = fused_temporal_layer_bwd_kernel
 # (seeds, seed times, buffer, edge storage).
 _ARGS = ("q", "k_table", "v_table", "seeds", "seed_times", "buf", "time_w",
          "time_b", "wt_k", "wt_v", "edge_feats", "we_k", "we_v")
-
-
-def _use_kernel(mode: str, x: torch.Tensor) -> bool:
-    """Resolve a dispatch mode against the operand's device."""
-    if mode not in ("auto", "ref", "kernel"):
-        raise ValueError(f"unknown kernel dispatch mode {mode!r}")
-    if mode == "kernel" and x.device.type != "cuda":
-        raise ValueError(
-            f"mode='kernel' needs CUDA tensors; got a tensor on {x.device}")
-    return mode == "kernel" or (mode == "auto" and x.device.type == "cuda")
 
 
 class _FusedLayerFn(torch.autograd.Function):
@@ -102,7 +93,7 @@ def fused_temporal_layer(q, k_table, v_table, seeds, seed_times, buf, *,
     """
     kw = dict(time_w=time_w, time_b=time_b, wt_k=wt_k, wt_v=wt_v,
               edge_feats=edge_feats, we_k=we_k, we_v=we_v)
-    if not _use_kernel(mode, q):
+    if not use_kernel(mode, q):
         return fused_temporal_layer_ref(q, k_table, v_table, seeds,
                                         seed_times, buf, **kw)
     seeds = seeds.to(torch.int32).contiguous()
@@ -119,7 +110,7 @@ def fused_recency_attention(q, k_table, v_table, seeds, buf_ids, *,
                             mode: str = "auto"):
     """q: (S, H, D); k_table, v_table: (N, H, D); seeds: (S,);
     buf_ids: (Nb, K) resident buffer id rows -> (S, H, D)."""
-    if not _use_kernel(mode, q):
+    if not use_kernel(mode, q):
         return fused_recency_attention_ref(q, k_table, v_table, seeds, buf_ids)
     return fused_recency_attention_kernel(
         q.contiguous(), k_table.contiguous(), v_table.contiguous(),

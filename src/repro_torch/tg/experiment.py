@@ -1,11 +1,12 @@
 """``tg.Experiment`` — the declarative front door of the port.
 
 Same specs and serialization as ``repro.tg.Experiment``. ``compile`` covers
-the CTDG link quadrant (``task="link"``, no discretization) for the ported
-pipeline, on ``device`` (``"cuda"`` by default), with ``TrainSpec.telemetry``
-as a JSONL ``FileSink``; ``run`` compiles, trains through ``TrainLoop`` and
-evaluates. The snapshot and node quadrants, out-of-core storage and data
-sharding raise ``NotImplementedError`` until their slices land.
+both link quadrants on ``device`` (``"cuda"`` by default), with
+``TrainSpec.telemetry`` as a JSONL ``FileSink``: the event stream
+(``CTDGLinkPipeline``) and, with ``DataSpec.discretization`` set, the
+snapshots (``DTDGLinkPipeline``); ``run`` compiles, trains through
+``TrainLoop`` and evaluates. The node quadrants, out-of-core storage and
+data sharding raise ``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from repro_torch.device import resolve_device
 from repro_torch.tg.specs import DataSpec, ModelSpec, SamplerSpec, TrainSpec
 
 CTDG_LINK_MODELS = ("tgat", "tgn", "graphmixer", "dygformer", "tpnet")
+DTDG_MODELS = ("gcn", "gclstm", "tgcn")
 
 TASKS = ("link", "node")
 
@@ -85,27 +87,43 @@ class Experiment:
 
         ``data`` overrides ``DataSpec``'s generated stream with a pre-built
         ``DGData``; ``telemetry`` overrides the ``TrainSpec.telemetry``
-        writer. Only the CTDG link quadrant is ported.
+        writer. The link quadrants are ported: the event stream without
+        ``DataSpec.discretization``, the snapshot pipeline with it.
         """
         resolve_device(device)
         d, m, t = self.data, self.model, self.train
-        if self.task != "link" or d.discretization is not None:
+        if self.task != "link":
             raise NotImplementedError(
-                "the port compiles the CTDG link quadrant (task='link', no "
-                "discretization); snapshot and node pipelines are later "
-                "slices (ROADMAP A)")
+                "the port compiles the link quadrants (task='link'); the node "
+                "pipelines are a later slice (ROADMAP A)")
         if d.storage is not None or t.data_shards > 1:
             raise NotImplementedError(
                 "out-of-core storage and data sharding are later slices of "
                 "the port (ROADMAP A)")
-        if m.name not in CTDG_LINK_MODELS:
+        names = CTDG_LINK_MODELS if d.discretization is None else DTDG_MODELS
+        if m.name not in names:
+            kind = ("an event-stream (CTDG) link" if d.discretization is None
+                    else "a snapshot (DTDG)")
             raise ValueError(
-                f"model {m.name!r} is not an event-stream (CTDG) link model; "
-                f"have {CTDG_LINK_MODELS}")
+                f"model {m.name!r} is not {kind} model; have {names} (set or "
+                f"drop DataSpec.discretization for the other pipeline)")
         if data is None:
             from repro_torch.data import generate
 
             data = generate(d.dataset, scale=d.scale)
+        tel = self._telemetry(telemetry)
+        if d.discretization is not None:
+            from repro_torch.train.loop import DTDGLinkPipeline
+
+            return DTDGLinkPipeline(
+                m.name, data,
+                snapshot_unit=d.discretization, edge_capacity=d.capacity,
+                lr=t.lr, num_negatives=t.num_negatives,
+                eval_negatives=t.eval_negatives, seed=t.seed,
+                val_ratio=d.val_ratio, test_ratio=d.test_ratio,
+                compiled=t.compiled, chunk_size=t.chunk_size,
+                telemetry=tel, device=device, **dict(m.kwargs),
+            )
         from repro_torch.train.loop import CTDGLinkPipeline
 
         return CTDGLinkPipeline(
@@ -114,7 +132,7 @@ class Experiment:
             eval_negatives=t.eval_negatives, seed=t.seed,
             model_kwargs=dict(m.kwargs), sampler_spec=self.sampler,
             val_ratio=d.val_ratio, test_ratio=d.test_ratio,
-            telemetry=self._telemetry(telemetry), device=device,
+            telemetry=tel, device=device,
         )
 
     # -- execution -------------------------------------------------------

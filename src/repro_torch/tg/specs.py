@@ -11,9 +11,9 @@ one experiment blob reads in both packages:
   ``ModelSpec``   — *what model*: a zoo name plus its config kwargs.
   ``TrainSpec``   — *how to train*: optimizer, epochs, cadences.
 
-Fields the port does not carry yet (snapshots, storage, sharding) keep
-their place so blobs round-trip;
-``tg.Experiment.compile`` raises ``NotImplementedError`` when one is set.
+Fields the port does not carry yet (storage, sharding) keep their place so
+blobs round-trip; ``tg.Experiment.compile`` raises ``NotImplementedError``
+when one is set.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class DataSpec(_SpecBase):
     ``"h"`` asks for snapshots, with ``capacity`` their row count).
     ``val_ratio``/``test_ratio`` are the ``DGData.split`` boundaries.
     ``storage`` names an on-disk event store directory. The port compiles
-    the event stream only, without ``storage``.
+    both link quadrants, without ``storage``.
     """
 
     dataset: str = "wikipedia"
@@ -157,8 +157,10 @@ class ModelSpec(_SpecBase):
     """A model-zoo name plus its config kwargs.
 
     CTDG link models: ``tgat``, ``tgn``, ``graphmixer``, ``dygformer``,
-    ``tpnet`` (the port runs ``tgat``). ``kwargs`` feed the model config
-    (e.g. ``{"num_layers": 1}`` for TGAT) and must stay JSON-serializable.
+    ``tpnet`` (the port runs ``tgat``); snapshot (DTDG) models: ``gcn``,
+    ``gclstm``, ``tgcn``. ``kwargs`` feed the model config (e.g.
+    ``{"num_layers": 1}`` for TGAT, ``{"d_embed": 64}`` for the snapshot
+    models) and must stay JSON-serializable.
     """
 
     name: str = "tgat"
@@ -173,12 +175,11 @@ class ModelSpec(_SpecBase):
 class TrainSpec(_SpecBase):
     """Optimizer, epochs, eval cadence, and checkpoint policy.
 
-    The port reads every field of the CTDG link pipeline: ``lr``,
-    ``epochs``, ``batch_size``, ``eval_negatives``, ``seed``, the eval and
-    checkpoint cadences and ``telemetry`` (a JSONL path). ``num_negatives``,
-    ``compiled`` and ``chunk_size`` belong to the snapshot pipelines, which
-    are not ported; ``data_shards > 1`` (the reference's 2-D mesh) makes
-    ``Experiment.compile`` raise.
+    The port reads every field: ``lr``, ``epochs``, ``batch_size`` (event
+    stream), ``num_negatives``, ``compiled`` and ``chunk_size`` (snapshots),
+    ``eval_negatives``, ``seed``, the eval and checkpoint cadences and
+    ``telemetry`` (a JSONL path); ``data_shards > 1`` (the reference's 2-D
+    mesh) makes ``Experiment.compile`` raise.
     """
 
     lr: Optional[float] = None

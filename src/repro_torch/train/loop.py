@@ -1,4 +1,4 @@
-"""CTDG link prediction: the event-stream pipeline and the epoch engine.
+"""Link prediction pipelines (CTDG and DTDG) and the epoch engine.
 
   * ``CTDGLinkPipeline`` — the TGB link recipe over the device recency
     sampler, 1-layer TGAT and one-vs-many MRR, on one device
@@ -10,6 +10,12 @@
     (the reference's choice when its sampler is on the device) contends
     with the step for the interpreter lock at every op and is slower
     (``chip_smoke.py --profile``, ``loader`` phase);
+  * ``DTDGLinkPipeline`` (legacy alias ``SnapshotLinkTrainer``) — snapshot
+    link prediction over the device ``SnapshotTensor`` with GCN, GCLSTM or
+    T-GCN, every segment aggregation through the segment-sum kernel on the
+    card; the reference's ``lax.scan`` epoch becomes a Python loop over
+    prediction pairs running the same step (``SnapshotPairPipeline`` holds
+    the split and pair plumbing);
   * ``TrainLoop`` — the epoch engine: ``train_epoch`` / ``evaluate`` /
     ``save_checkpoint`` at the requested cadences, its history rebuilt from
     the telemetry records it emits;
@@ -37,15 +43,19 @@ from repro_torch.core import (
     DGDataLoader,
     DGraph,
     EVAL_KEY,
+    RECIPE_DTDG_SNAPSHOT,
     RECIPE_TGB_LINK,
     RecipeRegistry,
     TRAIN_KEY,
+    TimeDelta,
+    snapshot_tensor,
 )
+from repro_torch.core.batch import Batch
 from repro_torch.core.tg_hooks import stage_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.models.tg import tgat
-from repro_torch.models.tg.common import bce_link_loss
+from repro_torch.models.tg import snapshot, tgat
+from repro_torch.models.tg.common import bce_link_loss, link_decoder
 from repro_torch.obs import MemorySink, Telemetry
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tg.specs import SamplerSpec
@@ -101,6 +111,24 @@ def restore_bundle(ckpt_dir: str, step: Optional[int], target: Dict[str, Any],
             f"pipeline is {model_name!r}"
         )
     return tree, step
+
+
+def weighted_mrr(pos_rows, neg_rows, mask_rows) -> float:
+    """Per-row MRR weighted by the row's valid predictions, as the
+    reference aggregates its DTDG eval: ``pos_rows`` (R, C), ``neg_rows``
+    (R, C, M) and ``mask_rows`` (R, C) tensors, one prediction pair per row.
+    Ties count half a rank (``metrics.mrr``). One host read."""
+    pos = torch.as_tensor(pos_rows)
+    neg = torch.as_tensor(neg_rows)
+    m = torch.as_tensor(mask_rows).to(torch.float32)
+    greater = (neg > pos[..., None]).sum(-1).float()
+    ties = (neg == pos[..., None]).sum(-1).float()
+    rr = 1.0 / (1.0 + greater + 0.5 * ties)
+    w = m.sum(-1)
+    row = (rr * m).sum(-1) / torch.clamp(w, min=1.0)
+    out = (row.double() * w.double()).sum() / torch.clamp(w.double().sum(),
+                                                           min=1.0)
+    return float(out)
 
 
 # ----------------------------------------------------------------------
@@ -184,7 +212,7 @@ class TrainLoop:
 
 
 # ----------------------------------------------------------------------
-# CTDG link prediction: event-stream pipeline
+# Parameters and optimizer state, shared by the pipelines
 # ----------------------------------------------------------------------
 def _unflatten(tree, leaves):
     it = iter(leaves)
@@ -197,7 +225,50 @@ def _on_device(t, device, dtype) -> torch.Tensor:
     return t.detach().to(device=device, dtype=dtype).clone()
 
 
-class CTDGLinkPipeline:
+class _ParamsAndOptimizer:
+    """Parameter and AdamW plumbing the pipelines share: the parameters are
+    float32 leaf tensors that require grad on ``self.device``, the AdamW
+    state mirrors them, and a step is ``_update(_grads(loss))``."""
+
+    def load_params(self, params) -> None:
+        """Install a parameter tree (nested dicts of tensors or arrays) on
+        the pipeline's device as float32 leaf tensors that require grad."""
+        self.params = tree_map(
+            lambda t: _on_device(t, self.device, torch.float32)
+            .requires_grad_(True), params)
+
+    def load_opt_state(self, state) -> None:
+        """Install an AdamW state ``{"mu", "nu", "step"}`` (tensors or
+        arrays) on the pipeline's device: float32 moments, int32 step."""
+        def moments(tree):
+            return tree_map(
+                lambda t: _on_device(t, self.device, torch.float32), tree)
+
+        self.opt_state = {
+            "mu": moments(state["mu"]), "nu": moments(state["nu"]),
+            "step": _on_device(state["step"], self.device,
+                               torch.int32).reshape(()),
+        }
+
+    def _grads(self, loss: torch.Tensor):
+        """Gradients of ``loss`` for every parameter, as a tree shaped like
+        ``params`` (zeros where a parameter is unused, as JAX gives)."""
+        leaves = tree_leaves(self.params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return _unflatten(self.params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+
+    def _update(self, grads) -> None:
+        """One AdamW step on the parameters and the optimizer state."""
+        self.params, self.opt_state = adamw_update(
+            self.params, grads, self.opt_state, self.opt_cfg)
+
+
+# ----------------------------------------------------------------------
+# CTDG link prediction: event-stream pipeline
+# ----------------------------------------------------------------------
+class CTDGLinkPipeline(_ParamsAndOptimizer):
     """CTDG link prediction over the TGB link recipe.
 
     Ported: ``model_name="tgat"`` (1 layer) with
@@ -277,27 +348,6 @@ class CTDGLinkPipeline:
         self.opt_cfg = AdamWConfig(lr=1e-4 if lr is None else lr)
         self.opt_state = adamw_init(self.params)
 
-    # ------------------------------------------------------------------
-    def load_params(self, params) -> None:
-        """Install a parameter tree (nested dicts of tensors or arrays) on
-        the pipeline's device as float32 leaf tensors that require grad."""
-        self.params = tree_map(
-            lambda t: _on_device(t, self.device, torch.float32)
-            .requires_grad_(True), params)
-
-    def load_opt_state(self, state) -> None:
-        """Install an AdamW state ``{"mu", "nu", "step"}`` (tensors or
-        arrays) on the pipeline's device: float32 moments, int32 step."""
-        def moments(tree):
-            return tree_map(
-                lambda t: _on_device(t, self.device, torch.float32), tree)
-
-        self.opt_state = {
-            "mu": moments(state["mu"]), "nu": moments(state["nu"]),
-            "step": _on_device(state["step"], self.device,
-                               torch.int32).reshape(()),
-        }
-
     def _loader(self, data: DGData):
         """Hook-processed batches of ``data`` with every host array staged
         on the device, in the calling thread (a ``loader/stage`` span per
@@ -321,20 +371,6 @@ class CTDGLinkPipeline:
         pos, neg = tgat.link_scores(self.params, self.cfg, batch,
                                     self.batch_size, fused=self.fused)
         return bce_link_loss(pos, neg, batch["batch_mask"])
-
-    def _grads(self, loss: torch.Tensor):
-        """Gradients of ``loss`` for every parameter, as a tree shaped like
-        ``params`` (zeros where a parameter is unused, as JAX gives)."""
-        leaves = tree_leaves(self.params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return _unflatten(self.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-
-    def _update(self, grads) -> None:
-        """One AdamW step on the parameters and the optimizer state."""
-        self.params, self.opt_state = adamw_update(
-            self.params, grads, self.opt_state, self.opt_cfg)
 
     def _train_step(self, batch) -> torch.Tensor:
         """Loss, backward and one AdamW update on ``batch`` (the stateless
@@ -423,3 +459,437 @@ class CTDGLinkPipeline:
             out = float(np.sum(rrs) / max(np.sum(masks), 1.0))
             sp["mrr"] = out
         return out, time.perf_counter() - t0
+
+
+# ----------------------------------------------------------------------
+# Shared snapshot-pair plumbing
+# ----------------------------------------------------------------------
+class SnapshotPairPipeline:
+    """Shared base of the snapshot pipelines.
+
+    Owns the plumbing every snapshot-pair task repeats: tensorizing the
+    stream into a ``SnapshotTensor`` on the device, mapping chronological
+    ``DGData.split`` boundaries onto snapshot rows (a prediction pair
+    ``p -> p+1`` belongs to the split containing its *predicted* snapshot
+    ``p+1``), the ``_split_pairs`` ranges, and the FIFO-bounded cache of a
+    chunk's stacked inputs.
+    """
+
+    # A chunk's inputs are pure functions of (snapshot tensor, task inputs);
+    # cache the few ranges an epoch reuses, FIFO-evicting beyond this bound
+    # so long-lived pipelines don't accumulate per-chunk device copies.
+    _XS_CACHE_MAX = 8
+
+    def _init_snapshots(self, data: DGData, unit, capacity, device,
+                        val_ratio: float, test_ratio: float) -> None:
+        """Tensorize ``data`` once and map split times to snapshot rows."""
+        self.snapshots = snapshot_tensor(data, unit, capacity=capacity,
+                                         device=device)
+        self.capacity = self.snapshots.capacity
+        T = self.snapshots.num_snapshots
+        _, val_d, test_d = data.split(val_ratio, test_ratio)
+        test_row = (
+            self.snapshots.row_of_time(int(test_d.edge_t[0]))
+            if test_d.num_edge_events else T
+        )
+        # An empty val split collapses onto the test boundary (val pairs
+        # empty, test pairs intact) rather than swallowing the test split.
+        val_row = (
+            self.snapshots.row_of_time(int(val_d.edge_t[0]))
+            if val_d.num_edge_events else test_row
+        )
+        self.set_split_rows(val_row, test_row)
+        self._xs_cache: Dict[Tuple, Dict[str, Any]] = {}
+
+    def set_split_rows(self, val_row: int, test_row: int) -> None:
+        """Install (clamped) snapshot-row split boundaries: the first val
+        row and the first test row. ``val_row == test_row`` means no val
+        pairs."""
+        T = self.snapshots.num_snapshots
+        self._val_row = min(max(val_row, 1), T)
+        self._test_row = min(max(test_row, self._val_row), T)
+
+    def _split_pairs(self, split: str) -> Tuple[int, int]:
+        """Prediction-pair range ``[lo, hi)`` for a split."""
+        T = self.snapshots.num_snapshots
+        if split == "train":
+            return 0, max(self._val_row - 1, 0)
+        if split == "val":
+            return max(self._val_row - 1, 0), max(self._test_row - 1, 0)
+        if split == "test":
+            return max(self._test_row - 1, 0), max(T - 1, 0)
+        raise ValueError(f"unknown split {split!r}")
+
+    def _pair_slices(self, lo: int, hi: int) -> Dict[str, Any]:
+        """The stacked current/predicted snapshot tensors for pairs
+        ``[lo, hi)`` (pair p = snapshot p -> p+1)."""
+        st = self.snapshots
+        return {
+            "src": st.src[lo:hi], "dst": st.dst[lo:hi],
+            "mask": st.mask[lo:hi],
+            "nsrc": st.src[lo + 1:hi + 1], "ndst": st.dst[lo + 1:hi + 1],
+            "nmask": st.mask[lo + 1:hi + 1],
+        }
+
+    def _xs_cached(self, key: Tuple, build) -> Dict[str, Any]:
+        """FIFO-bounded memoization of a chunk-input dict keyed by ``key``."""
+        if key not in self._xs_cache:
+            if len(self._xs_cache) >= self._XS_CACHE_MAX:
+                self._xs_cache.pop(next(iter(self._xs_cache)))
+            self._xs_cache[key] = build()
+        return self._xs_cache[key]
+
+
+def _state_map(fn, state):
+    """Apply ``fn`` to every tensor of a recurrent state (``()``, one
+    tensor, or a tuple of tensors)."""
+    if isinstance(state, tuple):
+        return tuple(fn(t) for t in state)
+    return fn(state)
+
+
+# ----------------------------------------------------------------------
+# DTDG link prediction: snapshot pipeline
+# ----------------------------------------------------------------------
+class DTDGLinkPipeline(SnapshotPairPipeline, _ParamsAndOptimizer):
+    """DTDG link prediction over the snapshot tensor, on ``device``
+    (``"cuda"`` by default).
+
+    Snapshot t's embeddings predict the edges of snapshot t+1. The stream is
+    tensorized once into a ``SnapshotTensor`` on the device. With
+    ``compiled=True`` (the default) a split runs in chunks of
+    ``chunk_size`` pairs (default: the whole split), each chunk's inputs and
+    negatives prepared at once, then one step per pair; with
+    ``compiled=False`` each pair's negatives come from the
+    ``RECIPE_DTDG_SNAPSHOT`` hooks. Both run the same step function, so they
+    are bit-identical, as the reference's scan and loop paths are.
+
+    A train step is the reference's scan body: the model's apply on
+    snapshot p from the carried recurrent state, BCE over snapshot p+1's
+    edges and ``num_negatives`` negatives each, the gradient with respect to
+    the parameters only (the carried state is an input, as in the scan),
+    one AdamW update (``lr``, default 1e-3). The per-pair losses stay on the
+    device and are read once per chunk. ``mode`` goes to every segment sum
+    (``"auto"``: the CUDA kernel on the card, its plain version on the CPU;
+    ``"ref"`` forces the plain version). Splits are chronological
+    ``DGData.split`` boundaries mapped to snapshot rows; ``evaluate`` warms
+    the recurrent state through every earlier snapshot with advance-only
+    steps first. Checkpoints bundle ``{params, opt_state[, model_state],
+    hooks, pipeline}`` in the reference's layout, ``pipeline`` holding the
+    mid-epoch snapshot-pair cursor.
+    """
+
+    def __init__(
+        self,
+        model_name: str,
+        data: DGData,
+        snapshot_unit: TimeDelta | str = "h",
+        d_embed: int = 128,
+        lr: Optional[float] = None,
+        num_negatives: int = 1,
+        eval_negatives: int = 20,
+        edge_capacity: Optional[int] = None,
+        seed: int = 0,
+        val_ratio: float = 0.15,
+        test_ratio: float = 0.15,
+        compiled: bool = True,
+        chunk_size: Optional[int] = None,
+        mode: str = "auto",
+        device="cuda",
+        telemetry: Optional[Telemetry] = None,
+    ):
+        if model_name not in snapshot.SNAPSHOT_MODELS:
+            raise ValueError(f"unknown DTDG model {model_name!r}")
+        self.device = resolve_device(device)
+        self.model_name = model_name
+        self.data = data
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.unit = TimeDelta.coerce(snapshot_unit)
+        self.num_negatives = num_negatives
+        self.eval_negatives = eval_negatives
+        self._seed = seed
+        self.compiled = compiled
+        self.chunk_size = chunk_size
+        self.mode = mode
+
+        self._init_snapshots(data, self.unit, edge_capacity, self.device,
+                             val_ratio, test_ratio)
+
+        self.cfg = snapshot.SnapshotConfig(num_nodes=data.num_nodes,
+                                           d_embed=d_embed)
+        gen = torch.Generator().manual_seed(seed)
+        self.load_params(snapshot.init_params(model_name, gen, self.cfg))
+        self._apply = snapshot.make_apply(model_name, self.cfg)
+        self._has_state = model_name != "gcn"
+        self.model_state = self._init_state()
+
+        self.manager = RecipeRegistry.build(
+            RECIPE_DTDG_SNAPSHOT,
+            num_nodes=data.num_nodes,
+            capacity=self.capacity,
+            num_negatives=num_negatives,
+            eval_negatives=eval_negatives,
+            seed=seed,
+            device=self.device,
+        )
+        self.opt_cfg = AdamWConfig(lr=1e-3 if lr is None else lr)
+        self.opt_state = adamw_init(self.params)
+        self._cursor = 0  # next train pair (mid-epoch checkpoint resume)
+
+    # ------------------------------------------------------------------
+    def _init_state(self):
+        return snapshot.init_state(self.model_name, self.cfg, self.device)
+
+    def load_model_state(self, state) -> None:
+        """Install a recurrent state (``()``, one tensor or array, or a
+        tuple of them, as ``init_state`` lays it out) on the device."""
+        self.model_state = _state_map(
+            lambda t: _on_device(t, self.device, torch.float32), state)
+
+    def _scores(self, params, x, state):
+        """The step function every path runs: the model on snapshot p, then
+        the decoder's logits for snapshot p+1's edges (``pos`` (C,)) and
+        their negatives (``neg`` (C, m)). A negative equal to the positive
+        destination takes the positive's logit: its embedding row is the
+        same, and MRR counts it as an exact tie."""
+        z, new_state = self._apply(params, x["src"], x["dst"], x["mask"],
+                                   state, mode=self.mode)
+        ndst, neg_ids = x["ndst"].long(), x["neg"].long()
+        h_src = z[x["nsrc"].long()]
+        pos = link_decoder(params["decoder"], h_src, z[ndst])
+        neg = link_decoder(params["decoder"], h_src, z[neg_ids])
+        neg = torch.where(neg_ids == ndst[:, None], pos[:, None], neg)
+        return pos, neg, new_state
+
+    def _train_step(self, x) -> torch.Tensor:
+        """Loss, gradient and one AdamW update on pair ``x``; carries the
+        new recurrent state on. Returns the loss as a device scalar."""
+        pos, neg, new_state = self._scores(self.params, x, self.model_state)
+        loss = bce_link_loss(pos, neg, x["nmask"])
+        self._update(self._grads(loss))
+        self.model_state = _state_map(torch.Tensor.detach, new_state)
+        return loss.detach()
+
+    @torch.no_grad()
+    def _eval_step(self, state, x):
+        pos, neg, new_state = self._scores(self.params, x, state)
+        return new_state, pos, neg
+
+    @torch.no_grad()
+    def _advance_step(self, state, p: int):
+        st = self.snapshots
+        _, new_state = self._apply(self.params, st.src[p], st.dst[p],
+                                   st.mask[p], state, mode=self.mode)
+        return new_state
+
+    # ------------------------------------------------------------------
+    def _pair_xs(self, lo: int, hi: int, m: int) -> Dict[str, Any]:
+        """Stacked inputs for prediction pairs ``[lo, hi)`` (pair p =
+        snapshot p -> p+1) with ``m`` negatives per predicted edge."""
+        def build():
+            rows = np.arange(lo + 1, hi + 1)
+            return {**self._pair_slices(lo, hi),
+                    "neg": self.snapshots.negatives(self._seed, m, rows)}
+
+        return self._xs_cached((lo, hi, m), build)
+
+    def _pair_x(self, p: int, neg) -> Dict[str, Any]:
+        """One pair's tensors (hook path), with hook-produced negatives."""
+        st = self.snapshots
+        return {
+            "src": st.src[p], "dst": st.dst[p], "mask": st.mask[p],
+            "nsrc": st.src[p + 1], "ndst": st.dst[p + 1],
+            "nmask": st.mask[p + 1], "neg": neg,
+        }
+
+    def _hook_negatives(self, p: int):
+        """Run the predicted snapshot through the active hook pipeline and
+        return its ``neg`` draws (identical to the compiled path's)."""
+        st = self.snapshots
+        batch = Batch(
+            {"src": st.src[p + 1], "dst": st.dst[p + 1],
+             "time": np.full(st.capacity, (st.t0 + p + 1) * st.ticks,
+                             dtype=np.int64),
+             "snap_mask": st.mask[p + 1]},
+            meta={"snapshot_row": p + 1},
+        )
+        return self.manager.execute(batch)["neg"]
+
+    def _chunks(self, lo: int, hi: int):
+        step = self.chunk_size or max(hi - lo, 1)
+        for start in range(lo, hi, step):
+            yield start, min(start + step, hi)
+
+    def reset_epoch_state(self) -> None:
+        """Reset hook cursors and the recurrent state (start of an epoch)."""
+        self.manager.reset_state()
+        self.model_state = self._init_state()
+
+    @property
+    def snapshot_cursor(self) -> int:
+        """Next train snapshot pair to run: the mid-epoch resume cursor
+        carried in checkpoints as ``pipeline/snapshot_cursor``."""
+        return self._cursor
+
+    # ------------------------------------------------------------------
+    def train_chunk(self) -> Optional[list]:
+        """Run ONE chunk from the current snapshot cursor (compiled mode).
+
+        Runs the next ``chunk_size`` snapshot pairs, advances the cursor
+        (checkpointed as ``pipeline/snapshot_cursor``) and returns the
+        chunk's per-pair losses, read from the device once. Returns ``None``
+        once the train split is exhausted (and zeroes the cursor so the next
+        call starts a fresh epoch). A checkpoint written between calls
+        restores to exactly this boundary."""
+        if not self.compiled:
+            raise RuntimeError("train_chunk requires compiled=True")
+        lo, hi = self._split_pairs("train")
+        start = max(self._cursor, lo)
+        if start >= hi:
+            self._cursor = 0
+            return None
+        if self._cursor == 0:
+            self.reset_epoch_state()
+        chi = min(start + (self.chunk_size or max(hi - lo, 1)), hi)
+        tel = self.telemetry
+        with tel.span("dtdg/chunk", lo=start, hi=chi):
+            xs = self._pair_xs(start, chi, self.num_negatives)
+            losses = []
+            for i in range(chi - start):
+                with tel.span("dtdg/step"):
+                    losses.append(self._train_step(
+                        {k: v[i] for k, v in xs.items()}))
+            out = torch.stack(losses).cpu().tolist()
+        self._cursor = chi
+        return out
+
+    def train_epoch(self) -> Tuple[float, float]:
+        """One epoch over the train split. Returns (mean loss, seconds).
+
+        A restored mid-epoch snapshot cursor resumes from where the
+        checkpoint left off."""
+        tel = self.telemetry
+        with tel.span("dtdg/epoch", model=self.model_name,
+                      compiled=self.compiled) as sp:
+            lo, hi = self._split_pairs("train")
+            if self._cursor == 0:
+                self.reset_epoch_state()
+            start = max(self._cursor, lo)
+            t0 = time.perf_counter()
+            losses = []
+            if self.compiled:
+                while True:
+                    chunk_losses = self.train_chunk()
+                    if chunk_losses is None:
+                        break
+                    losses.extend(chunk_losses)
+            else:
+                steps = []
+                with self.manager.activate(TRAIN_KEY):
+                    for p in range(start, hi):
+                        x = self._pair_x(p, self._hook_negatives(p))
+                        with tel.span("dtdg/step"):
+                            steps.append(self._train_step(x))
+                        self._cursor = p + 1
+                losses = torch.stack(steps).cpu().tolist() if steps else []
+            self._cursor = 0
+            secs = time.perf_counter() - t0
+            mean = float(np.mean(losses)) if losses else 0.0
+            sp["loss"], sp["pairs"] = mean, len(losses)
+        return mean, secs
+
+    def evaluate(self, split: str = "val") -> Tuple[float, float]:
+        """One-vs-many MRR on val/test. Returns (MRR, seconds).
+
+        The recurrent state is warmed from scratch through all earlier
+        snapshots with advance-only steps (carried across the split
+        boundary), then the split's pairs are scored. The training state is
+        left as it was (checkpoint-resume safety)."""
+        tel = self.telemetry
+        with tel.span("dtdg/eval", split=split) as sp:
+            lo, hi = self._split_pairs(split)
+            self.manager.reset_state()
+            t0 = time.perf_counter()
+            state = self._init_state()
+            if self._has_state:
+                for p in range(lo):
+                    state = self._advance_step(state, p)
+            pos_rows, neg_rows, mask_rows = [], [], []
+            if self.compiled:
+                for clo, chi in self._chunks(lo, hi):
+                    xs = self._pair_xs(clo, chi, self.eval_negatives)
+                    for i in range(chi - clo):
+                        state, pos, neg = self._eval_step(
+                            state, {k: v[i] for k, v in xs.items()})
+                        pos_rows.append(pos)
+                        neg_rows.append(neg)
+                    mask_rows.append(xs["nmask"])
+            else:
+                with self.manager.activate(EVAL_KEY):
+                    for p in range(lo, hi):
+                        x = self._pair_x(p, self._hook_negatives(p))
+                        state, pos, neg = self._eval_step(state, x)
+                        pos_rows.append(pos)
+                        neg_rows.append(neg)
+                        mask_rows.append(x["nmask"][None])
+            out = 0.0
+            if pos_rows:
+                out = weighted_mrr(torch.stack(pos_rows), torch.stack(neg_rows),
+                                   torch.cat(mask_rows))
+            sp["mrr"] = out
+        return out, time.perf_counter() - t0
+
+    # -- checkpointing ---------------------------------------------------
+    # Params + optimizer state + recurrent model state + hook cursors + the
+    # snapshot-pair cursor, so a restored run resumes mid-epoch at the
+    # right snapshot with the right negative draws.
+    def _ckpt_tree(self) -> Dict[str, Any]:
+        tree = {
+            "params": self.params,
+            "opt_state": self.opt_state,
+            "hooks": self.manager.state_dict(),
+            "pipeline": {"snapshot_cursor": np.int64(self._cursor)},
+        }
+        if self._has_state:
+            tree["model_state"] = self.model_state
+        return tree
+
+    def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
+        """Write a checkpoint (atomic step directory). Returns its path."""
+        return save_bundle(ckpt_dir, step, self._ckpt_tree(), self.model_name,
+                           trainer="snapshot")
+
+    def restore_checkpoint(self, ckpt_dir: str, step: Optional[int] = None) -> int:
+        """Restore params, optimizer and model state, hook cursors and the
+        snapshot cursor (written by either package); returns the step."""
+        target = {k: v for k, v in self._ckpt_tree().items() if k != "hooks"}
+        tree, step = restore_bundle(ckpt_dir, step, target, self.model_name)
+        self.load_params(tree["params"])
+        self.load_opt_state(tree["opt_state"])
+        self.manager.load_state_dict(tree["hooks"])
+        self._cursor = int(np.asarray(tree["pipeline"]["snapshot_cursor"]))
+        if self._has_state:
+            self.load_model_state(tree["model_state"])
+        return step
+
+    def run_epoch(self, train_frac: Optional[float] = None,
+                  train: bool = True) -> Tuple[float, float]:
+        """Legacy shim: ``train=True`` -> ``train_epoch()``; otherwise
+        ``evaluate('val')``. ``train_frac`` is ignored (splits come from
+        ``DGData.split``), and passing it warns."""
+        if train_frac is not None:
+            import warnings
+
+            warnings.warn(
+                "run_epoch(train_frac=...) is ignored; splits come from "
+                "DGData.split — pass val_ratio/test_ratio to the pipeline "
+                "and use train_epoch()/evaluate() instead",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+        if train:
+            return self.train_epoch()
+        return self.evaluate("val")
+
+
+SnapshotLinkTrainer = DTDGLinkPipeline

@@ -36,7 +36,12 @@ def test_port_modules_load_no_jax_and_no_reference():
     names = _port_modules()
     assert {"repro_torch.kernels.temporal_attention.kernel",
             "repro_torch.optim.adamw", "repro_torch.obs.telemetry",
-            "repro_torch.distributed.checkpoint"} <= set(names)
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.kernels.segment_reduce.kernel",
+            "repro_torch.kernels.segment_reduce.ops",
+            "repro_torch.kernels.segment_reduce.ref",
+            "repro_torch.core.discretize", "repro_torch.nn.graph_conv",
+            "repro_torch.models.tg.snapshot"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -61,10 +66,10 @@ def test_port_sources_have_no_jax_or_reference_import(path):
 def test_entry_points_default_to_cuda(monkeypatch):
     import torch
 
-    from repro_torch.core import DeviceRecencySampler, PrefetchLoader
+    from repro_torch.core import DeviceRecencySampler, PrefetchLoader, snapshot_tensor
     from repro_torch.data import generate
-    from repro_torch.tg import Experiment, ModelSpec
-    from repro_torch.train.loop import CTDGLinkPipeline
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec
+    from repro_torch.train.loop import CTDGLinkPipeline, DTDGLinkPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -78,6 +83,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
                          model_kwargs={"num_layers": 1})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PrefetchLoader([])
+    snapshots = Experiment(data=DataSpec("tiny", discretization="h"),
+                           model=ModelSpec("gclstm", {"d_embed": 64}))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        snapshots.compile()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DTDGLinkPipeline("gclstm", generate("tiny"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        snapshot_tensor(generate("tiny"), "h")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate("tiny").to_snapshots("h")
     DeviceRecencySampler(10, 4, device="cpu")  # the explicit CPU path runs
 
 

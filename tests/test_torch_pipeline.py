@@ -87,5 +87,7 @@ def test_experiment_compiles_the_link_quadrant_on_cpu():
     assert Experiment.from_json(exp.to_json()) == exp
     with pytest.raises(NotImplementedError):
         Experiment(model=ModelSpec("tgn")).compile(device="cpu")
-    with pytest.raises(NotImplementedError):
+    # With snapshots the quadrant is DTDG: an event-stream model is refused
+    # (tests/test_torch_dtdg_pipeline.py compiles the snapshot models).
+    with pytest.raises(ValueError, match="not a snapshot"):
         Experiment(data=DataSpec("tiny", discretization="h")).compile(device="cpu")
