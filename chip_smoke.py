@@ -52,6 +52,29 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    epoch and a plain control from parameters scaled by 1 + 1e-7; GCN and
    T-GCN ``evaluate("val")`` against their plain versions.
 
+8. ``classic_kernels`` — K3 (masked seed -> K-neighbor attention over
+   pre-gathered keys and values, the classic path's core) against its plain
+   version at the classic path's shapes (train S = 600 and eval S = 4,400,
+   K = 10, H = 2, D = 50), a second launch bitwise, times of K3, its plain
+   version and ``scaled_dot_product_attention`` over the rows with a valid
+   slot, the bound; the gradient through ``_TemporalAttentionFn`` against
+   plain autograd; degenerate inputs (every slot masked, rows without a
+   valid slot, one valid slot, K = 1 and 300, S = 1 and 0, D = 33 and 128,
+   bfloat16).
+9. ``host``    — ``examples/quickstart.py``'s experiment as written (the host
+   ``RecencySampler``, the classic path) at full scale:
+   ``evaluate("val")`` through K3 (one launch per val batch) and with the
+   plain version; the first train steps held step by step; one
+   ``train_epoch()`` through K3 (one launch per train batch) and the plain
+   epoch from the same start (the sampler's state after both bit-equal);
+   the host and device samplers' neighborhoods bit-equal batch by batch.
+10. ``tgn``    — TGN at full width (``d_model``, ``d_memory``, ``d_time`` 100,
+   2 heads, k = 10) on the device sampler (K1, K2) and on the host sampler
+   (K3): ``evaluate("val")`` against the plain version (MRR, memory and
+   ``last_update``), step parity with exactly-zero GRU gradients, one
+   ``train_epoch()`` with its launch counts, a checkpoint round trip with
+   the model state.
+
 ``--profile`` adds ``profile`` (host-clock time per batch of the warm pass,
 and per scored val batch of the hooks, the model step and the metric, each
 closed by a device synchronise), ``trace`` (``torch.profiler`` over scored
@@ -64,10 +87,15 @@ by a synchronise), ``train_trace`` (the profiler over train steps as
 ``train_epoch`` runs them), ``dtdg_profile`` (a GCLSTM train step split
 into forward, backward and AdamW; the profiler over train steps and scored
 val pairs), ``dtdg_spread`` (loss and val MRR of free-running K4 and plain
-epochs) and ``dtdg_parity`` (the step parity over more steps). Then the
-``{"kernels":
-[...]}`` summary, the card's name and power limit as nvidia-smi reports
-them, and the last line ``{"ok": true, "device": {"platform": "gpu",
+epochs), ``dtdg_parity`` (the step parity over more steps), and for the
+classic path ``host_profile`` (the per-batch split of the host-sampler
+quickstart), ``host_trace`` and ``host_train_trace`` (its profiler windows)
+and ``tgn_device_train_trace`` / ``tgn_host_train_trace`` (TGN's train
+steps under the profiler on each sampler). Then the
+script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
+K2, K3 and K4 with their launches on the main paths; K1w, off the path,
+beside them), the card's name and power limit as nvidia-smi reports them,
+and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
 """
 
@@ -90,6 +118,9 @@ ATOL = RTOL = 1e-4
 # (its entries sum dtheta * dt with dt up to ~2.6e6 s over every slot).
 TIME_W_RTOL = 1e-4
 MRR_TOL = 1e-4
+# K3 in bfloat16 against its plain version: the reference's harness
+# tolerance for bfloat16 (tests/kernels/harness.py).
+BF16_TOL = 2e-2
 # Train phase. A step from the same parameters, kernels against the plain
 # version: loss within STEP_LOSS_TOL, the layer's K1 and K2 on that step's
 # inputs within the kernel tolerances above (``step_parity``); whole-model
@@ -145,6 +176,8 @@ TPU_K1W = "src/repro/kernels/temporal_attention/kernel.py:746"
 TPU_K2 = "src/repro/kernels/temporal_attention/kernel.py:626"
 SEG_SOURCE = "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu"
 TPU_K4 = "src/repro/kernels/segment_reduce/kernel.py:47"
+TA_SOURCE = "src/repro_torch/kernels/temporal_attention/csrc/temporal_attention.cu"
+TPU_K3 = "src/repro/kernels/temporal_attention/kernel.py:100"
 DEVICE = "cuda"
 
 
@@ -339,11 +372,14 @@ def time_ms(torch, fn, reps: int, trials: int = 5) -> float:
     return statistics.median(out)
 
 
-def compare(torch, got, want, what: str) -> float:
+def compare(torch, got, want, what: str, tol: float = ATOL) -> float:
+    """Hold a kernel's output elementwise to |err| <= tol + tol |ref| (in
+    float32, whatever the storage type); returns the largest error."""
     torch.cuda.synchronize()
+    got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite kernel output")
     err = (got - want).abs()
-    ok = bool((err <= ATOL + RTOL * want.abs()).all())
+    ok = bool((err <= tol + tol * want.abs()).all())
     check(ok, f"{what}: kernel disagrees with the plain version "
               f"(max abs err {float(err.max()):.3e})")
     return float(err.max())
@@ -544,65 +580,101 @@ def _flat(tree, prefix=""):
 
 def step_parity(torch, pipe, n_steps: int):
     """The first ``n_steps`` train steps through the kernels, each from the
-    same parameters as a plain-version step. Held: the loss, and the fused
-    layer as the model calls it in that step, K1 against the plain forward
-    on the step's own inputs and K2 against the plain backward on the
-    step's own cotangent (taken from the autograd graph). The whole-model
-    gradients are compared too, but only reported: the merge and decoder
-    MLPs' ReLUs and the cancelling time_w sum turn a rounding-level change
-    of the layer's output into a whole unit's gradient in a few percent of
-    steps (on the CPU, scaling the layer's output by 1 + 1e-6 noise moved
-    4 of 150 steps beyond 1e-4), so no tolerance holds them every step.
-    The kernels' update moves the run on. Returns the worst errors seen."""
+    same parameters (and model state) as a plain-version step. Held: the
+    loss, and the attention as the model calls it in that step: on the fused
+    path K1 against the plain forward on the step's own inputs and K2
+    against the plain backward on the step's own cotangent (taken from the
+    autograd graph); on the classic path K3 against its plain version on the
+    step's own inputs and ``_TemporalAttentionFn``'s gradients on the step's
+    own cotangent against plain autograd. A stateful model's GRU gradients
+    are held to exact zeros on both runs (no gradient reaches the memory
+    update). The whole-model gradients are compared too, but only reported:
+    the merge and decoder MLPs' ReLUs and the cancelling time_w sum turn a
+    rounding-level change of the layer's output into a whole unit's gradient
+    in a few percent of steps (on the CPU, scaling the layer's output by
+    1 + 1e-6 noise moved 4 of 150 steps beyond 1e-4), so no tolerance holds
+    them every step. The kernels' update (and state) moves the run on.
+    Returns the worst errors seen."""
     import repro_torch.kernels.temporal_attention as ta
     from repro_torch.core import TRAIN_KEY
 
-    layer, seen = ta.fused_temporal_layer, {}
+    layer, attention, seen = ta.fused_temporal_layer, ta.temporal_attention, {}
 
-    def spy(q, k_table, v_table, seeds, seed_times, buf, *, mode, **kw):
+    def watch(name, out, args):
+        seen[name] = args
+        out.register_hook(lambda g: seen.__setitem__(name + "_g", g.detach().contiguous()))
+
+    def layer_spy(q, k_table, v_table, seeds, seed_times, buf, *, mode, **kw):
         out = layer(q, k_table, v_table, seeds, seed_times, buf, mode=mode, **kw)
         if mode == "auto":
-            seen["args"] = dict(
+            watch("layer", out, dict(
                 q=q.detach().contiguous(), k_table=k_table.detach().contiguous(),
                 v_table=v_table.detach().contiguous(),
                 seeds=seeds.to(torch.int32).contiguous(),
                 seed_times=seed_times.to(torch.int32).contiguous(),
                 buf=buf.to(torch.int32).contiguous(),
                 **{k: None if v is None else v.detach().contiguous()
-                   for k, v in kw.items()})
-            out.register_hook(lambda g: seen.__setitem__("g", g.detach().contiguous()))
+                   for k, v in kw.items()}))
         return out
 
+    def attention_spy(q, k, v, mask, *, mode="auto"):
+        out = attention(q, k, v, mask, mode=mode)
+        if mode == "auto":
+            watch("attention", out, [t.detach().contiguous() for t in (q, k, v)]
+                  + [mask.contiguous()])
+        return out
+
+    def k3_grads(args, g, mode):
+        leaves = [t.clone().requires_grad_(True) for t in args[:3]]
+        attention(*leaves, args[3], mode=mode).backward(g)
+        return {name: t.grad for name, t in zip("qkv", leaves)}
+
     worst = {"loss": 0.0, "k1_max_abs_err": 0.0, "k2_max_rel_err": 0.0,
+             "k3_max_abs_err": 0.0, "k3_grad_max_abs_err": 0.0,
              "model_grad_rel": 0.0, "model_grad_name": None,
-             "steps_with_model_grads_beyond_1e-4": 0}
-    ta.fused_temporal_layer = spy
+             "steps_with_model_grads_beyond_1e-4": 0,
+             "gru_grads_exactly_zero": pipe.stateful or None}
+    ta.fused_temporal_layer, ta.temporal_attention = layer_spy, attention_spy
     try:
         pipe.reset_epoch_state()
         with pipe.manager.activate(TRAIN_KEY):
             for i, batch in zip(range(n_steps), pipe._loader(pipe.train_data)):
                 pipe.fused = "ref"
-                loss_ref = pipe._loss(batch)
+                loss_ref, _ = pipe._loss_and_state(batch)
                 grads_ref = _flat(pipe._grads(loss_ref))
                 pipe.fused = None
-                loss = pipe._loss(batch)
+                loss, new_state = pipe._loss_and_state(batch)
                 grads = pipe._grads(loss)
                 dl = abs(loss.item() - loss_ref.item())
                 check(dl <= STEP_LOSS_TOL, f"train step {i}: loss {loss.item()} "
                                            f"(kernels) vs {loss_ref.item()} (plain)")
                 worst["loss"] = max(worst["loss"], dl)
-                a, g = seen.pop("args"), seen.pop("g")
-                err = compare(torch, ta.fused_temporal_layer_kernel(**a),
-                              ta.fused_temporal_layer_ref(**a), f"K1 train step {i}")
-                errs = compare_grads(torch, ta.fused_temporal_layer_bwd_kernel(g, **a),
-                                     ta.fused_temporal_layer_bwd_ref(g, **a),
-                                     f"K2 train step {i}")
-                worst["k1_max_abs_err"] = max(worst["k1_max_abs_err"], err)
-                worst["k2_max_rel_err"] = max(worst["k2_max_rel_err"],
-                                              *(e[1] for e in errs.values()))
+                if "layer" in seen:
+                    a, g = seen.pop("layer"), seen.pop("layer_g")
+                    err = compare(torch, ta.fused_temporal_layer_kernel(**a),
+                                  ta.fused_temporal_layer_ref(**a), f"K1 train step {i}")
+                    errs = compare_grads(torch, ta.fused_temporal_layer_bwd_kernel(g, **a),
+                                         ta.fused_temporal_layer_bwd_ref(g, **a),
+                                         f"K2 train step {i}")
+                    worst["k1_max_abs_err"] = max(worst["k1_max_abs_err"], err)
+                    worst["k2_max_rel_err"] = max(worst["k2_max_rel_err"],
+                                                  *(e[1] for e in errs.values()))
+                if "attention" in seen:
+                    a, g = seen.pop("attention"), seen.pop("attention_g")
+                    err = compare(torch, ta.temporal_attention_kernel(*a),
+                                  ta.temporal_attention_ref(*a), f"K3 train step {i}")
+                    got, want = k3_grads(a, g, "kernel"), k3_grads(a, g, "ref")
+                    gerr = max(compare(torch, got[n], want[n], f"K3 d{n} train step {i}")
+                               for n in "qkv")
+                    worst["k3_max_abs_err"] = max(worst["k3_max_abs_err"], err)
+                    worst["k3_grad_max_abs_err"] = max(worst["k3_grad_max_abs_err"], gerr)
+                check(not seen, f"train step {i}: the kernel path ran no kernel")
                 beyond = False
                 for name, gr in _flat(grads).items():
                     want = grads_ref[name]
+                    if pipe.stateful and name.startswith("gru/"):
+                        check(not bool(gr.any()) and not bool(want.any()),
+                              f"train step {i}: GRU gradient {name} is not zero")
                     e = float((gr - want).abs().max())
                     scale = float(want.abs().max())
                     beyond |= e > GRAD_RTOL * scale + GRAD_FLOOR
@@ -611,8 +683,10 @@ def step_parity(torch, pipe, n_steps: int):
                         worst.update(model_grad_rel=rel, model_grad_name=name)
                 worst["steps_with_model_grads_beyond_1e-4"] += int(beyond)
                 pipe._update(grads)
+                if pipe.stateful:
+                    pipe.model_state = new_state
     finally:
-        ta.fused_temporal_layer = layer
+        ta.fused_temporal_layer, ta.temporal_attention = layer, attention
     torch.cuda.synchronize()
     return worst
 
@@ -806,6 +880,23 @@ def dtdg_experiment(model: str = "gclstm"):
                       train=TrainSpec(eval_negatives=20))
 
 
+def device_us_per_call(torch, fn, n: int = 50) -> float:
+    """Device time (µs) per call of ``fn`` from ``torch.profiler``: the sum
+    of the device kernels ``n`` calls launch, over ``n`` (after a warm-up
+    call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / n
+
+
 def segment_bound(n_kept, E, D, G):
     """Least time (ms) for one segment sum: ids and edge rows read once, the
     (G, D) output written once; one add per element of a kept edge row.
@@ -826,21 +917,8 @@ def dtdg_kernels_phase(torch, data):
     sum of the device kernels one call launches). Also: a second launch
     bit-equal to the first, and the kernel's sums against the CPU's
     edge-order ``index_add_``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import snapshot_tensor
     from repro_torch.kernels.segment_reduce import segment_sum_kernel, segment_sum_ref
-
-    def device_us(fn, n=50):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.end - e.time_range.start for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / n
 
     gen = torch.Generator().manual_seed(4)
     G = data.num_nodes
@@ -867,8 +945,10 @@ def dtdg_kernels_phase(torch, data):
                 rerun_bitwise_equal=bool(torch.equal(again, got)),
                 bitwise_equal_to_cpu_index_add=bool(torch.equal(got.cpu(), cpu)),
                 ms=time_ms(torch, kern, 200), plain_ms=time_ms(torch, plain, 200),
-                library_ms=time_ms(torch, lib, 200), device_us=device_us(kern),
-                plain_device_us=device_us(plain), library_device_us=device_us(lib),
+                library_ms=time_ms(torch, lib, 200),
+                device_us=device_us_per_call(torch, kern),
+                plain_device_us=device_us_per_call(torch, plain),
+                library_device_us=device_us_per_call(torch, lib),
                 bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
             check(results[f"{unit}_d{D}"]["rerun_bitwise_equal"],
                   f"K4 {unit} D={D}: a second launch gave other bits")
@@ -1136,6 +1216,407 @@ def dtdg_phase(torch, data):
                 checkpoint_resume_bit_equal=True, other_models=others)
 
 
+# ---------------------------------------------------------------------------
+# The classic path: K3, the host recency sampler, and TGN on both samplers
+# ---------------------------------------------------------------------------
+def attention_inputs(torch, gen, S, *, k=K, h=H, d=D, dtype=None, mask="path"):
+    """Random K3 operands on the card: q, k, v ~ N(0, 1) (the scale of the
+    projected rows) in ``dtype`` (float32 by default) and an (S, k) mask:
+    "path" shaped like the host sampler's after its warm pass (80% of the
+    seeds with all k slots, the rest with 0..k), "none" (every slot masked)
+    or "one" (one valid slot per seed)."""
+    q = torch.randn((S, h, d), generator=gen)
+    kk = torch.randn((S, k, h, d), generator=gen)
+    v = torch.randn((S, k, h, d), generator=gen)
+    if mask == "path":
+        cnt = torch.where(torch.rand((S, 1), generator=gen) < 0.8, k,
+                          torch.randint(0, k + 1, (S, 1), generator=gen))
+        m = torch.arange(k)[None] < cnt
+    else:
+        m = torch.zeros((S, k), dtype=torch.bool)
+        if mask == "one":
+            m[torch.arange(S), torch.randint(0, k, (S,), generator=gen)] = True
+    dtype = dtype or torch.float32
+    return [x.to(DEVICE, dtype) for x in (q, kk, v)] + [m.to(DEVICE)]
+
+
+def attention_bound(q, k, v, mask):
+    """Least time (ms) for one K3 call on these inputs: q and the mask read
+    once, each valid slot's key and value rows read once, the output written
+    once; per valid slot and head its score (2 D), the softmax (5) and its
+    share of the weighted sum (2 D). Returns (bound_ms, bound_by, bytes,
+    flops)."""
+    S, h, d = q.shape
+    b, slots = q.element_size(), int(mask.sum())
+    nbytes = 2 * b * S * h * d + mask.numel() + 2 * b * slots * h * d
+    return _bound(nbytes, slots * h * (4 * d + 5))
+
+
+def k3_phase(torch):
+    """K3 (masked seed -> K-neighbor attention over pre-gathered k/v) against
+    its plain version on the card at the classic path's shapes (train S =
+    600 and eval S = 4,400 seeds, K = 10, H = 2, D = 50, float32), with a
+    second launch held bitwise to the first; times (CUDA events over
+    back-to-back calls, and the device time per call by ``torch.profiler``)
+    of K3, its plain version and ``scaled_dot_product_attention`` on (S', H, 1, D) x
+    (S', H, K, D) with the boolean mask over the S' rows that have a valid
+    slot (SDPA gives no zeros for a row without one, so those rows are left
+    out of its call). Then the gradient through ``_TemporalAttentionFn``
+    against plain autograd (exact zeros on masked slots and empty rows) and
+    the degenerate inputs: every slot masked (exact zeros), rows without a
+    valid slot, one valid slot, K = 1, K = 300, S = 1, S = 0 (no launch),
+    D = 33 and 128, and bfloat16 at both path shapes (tolerance BF16_TOL)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.temporal_attention import (
+        LAUNCHES,
+        temporal_attention,
+        temporal_attention_kernel,
+        temporal_attention_ref,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    results, cases = {}, []
+    with torch.no_grad():
+        for name, S in (("train", TRAIN_S), ("eval", EVAL_S)):
+            q, k, v, m = attention_inputs(torch, gen, S)
+            got = temporal_attention_kernel(q, k, v, m)
+            err = compare(torch, got, temporal_attention_ref(q, k, v, m),
+                          f"K3 {name} S={S}")
+            again = temporal_attention_kernel(q, k, v, m)
+            check(bool(torch.equal(again, got)), f"K3 {name}: a second launch "
+                                                 f"gave other bits")
+            live = m.any(-1)
+            sq = q[live].unsqueeze(2).contiguous()                # (S', H, 1, D)
+            sk = k[live].permute(0, 2, 1, 3).contiguous()         # (S', H, K, D)
+            sv = v[live].permute(0, 2, 1, 3).contiguous()
+            sm = m[live][:, None, None, :].contiguous()          # (S', 1, 1, K)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+
+            lib_diff = float((sdpa()[:, :, 0, :] - got[live]).abs().max())
+            bound, by, nbytes, flops = attention_bound(q, k, v, m)
+            kern = lambda: temporal_attention_kernel(q, k, v, m)  # noqa: E731
+            plain = lambda: temporal_attention_ref(q, k, v, m)  # noqa: E731
+            results[f"K3_{name}"] = dict(
+                S=S, valid_slots=int(m.sum()), rows_without_valid_slot=int((~live).sum()),
+                max_abs_err=err, rerun_bitwise_equal=True,
+                ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 5),
+                library_ms=time_ms(torch, sdpa, 20), library_rows=int(live.sum()),
+                device_us=device_us_per_call(torch, kern),
+                plain_device_us=device_us_per_call(torch, plain),
+                library_device_us=device_us_per_call(torch, sdpa),
+                library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops,
+                bound_ms_every_slot=attention_bound(q, k, v, torch.ones_like(m))[0])
+
+        def case(label, S, zero=False, tol=ATOL, **kw):
+            q, k, v, m = attention_inputs(torch, gen, S, **kw)
+            if label == "empty_rows":
+                m[::5] = False
+            got = temporal_attention_kernel(q, k, v, m)
+            err = compare(torch, got, temporal_attention_ref(q, k, v, m), f"K3 {label}", tol)
+            empty = ~m.any(-1)
+            check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
+            check(not zero or bool(empty.all()), f"K3 {label}: expected every row empty")
+            cases.append({"case": label, "S": S, "dtype": str(got.dtype),
+                          "empty_rows": int(empty.sum()), "max_abs_err": err})
+
+        case("all_masked", 64, zero=True, mask="none")
+        case("empty_rows", TRAIN_S)
+        case("one_valid_slot", TRAIN_S, mask="one")
+        case("k1", TRAIN_S, k=1)
+        case("k300", 64, k=300)
+        case("s1", 1)
+        case("d33", TRAIN_S, d=33)
+        case("d128", TRAIN_S, d=128)
+        case("bf16_train", TRAIN_S, tol=BF16_TOL, dtype=torch.bfloat16)
+        case("bf16_eval", EVAL_S, tol=BF16_TOL, dtype=torch.bfloat16)
+        q, k, v, m = attention_inputs(torch, gen, 0)
+        before = LAUNCHES["temporal_attention"]
+        out = temporal_attention_kernel(q, k, v, m)
+        check(tuple(out.shape) == (0, H, D) and LAUNCHES["temporal_attention"] == before,
+              "K3 S=0: wrong shape or a launch")
+        cases.append({"case": "s0", "S": 0, "launched": False})
+
+    # The gradient: K3 in the forward, the plain version's by recompute.
+    q, k, v, m = attention_inputs(torch, gen, TRAIN_S)
+    m[::7] = False
+    g = torch.randn((TRAIN_S, H, D), generator=gen).to(DEVICE)
+    grads = []
+    for mode in ("kernel", "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        temporal_attention(*leaves, m, mode=mode).backward(g)
+        grads.append([t.grad for t in leaves])
+    gerr = {}
+    for name, a, b in zip("qkv", *grads):
+        gerr[f"d{name}"] = compare(torch, a, b, f"K3 gradient d{name}")
+    dq, dk, dv = grads[0]
+    check(bool((dq[~m.any(-1)] == 0).all()) and bool((dk[~m] == 0).all())
+          and bool((dv[~m] == 0).all()),
+          "K3 gradient: masked slots or empty rows not exactly zero")
+    results["K3_grad"] = dict(S=TRAIN_S, max_abs_err=gerr, masked_exact_zero=True)
+    return results, cases
+
+
+def quickstart_host():
+    """``examples/quickstart.py``'s experiment as written (the host recency
+    sampler, ``SamplerSpec(kind="recency", k=10)``: the classic path), at
+    full data scale."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, SamplerSpec, TrainSpec
+
+    return Experiment(
+        data=DataSpec("wikipedia", scale=1.0),
+        model=ModelSpec("tgat", {"num_layers": 1}),
+        sampler=SamplerSpec(kind="recency", k=10),
+        train=TrainSpec(epochs=2, batch_size=200, eval_negatives=20),
+        task="link",
+    )
+
+
+def eval_run(torch, pipe, fused):
+    """``evaluate("val")`` with ``pipe.fused = fused``, launch counts zeroed
+    just before it and read just after; the sampler's and the model's state
+    after it."""
+    from repro_torch.kernels.temporal_attention import LAUNCHES, reset_launches
+
+    pipe.fused = fused
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    mrr, scored_s = pipe.evaluate("val")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    hook = next(h for h in pipe.manager.hooks() if hasattr(h, "sampler"))
+    state = None if not pipe.stateful else _tree_clone(pipe.model_state)
+    check(math.isfinite(mrr) and 0.0 < mrr <= 1.0, f"val MRR {mrr} out of range")
+    return dict(mrr=mrr, scored_seconds=scored_s, evaluate_seconds=wall,
+                launches=dict(LAUNCHES)), hook.state_dict(), state
+
+
+def _states_equal(a, b):
+    return all(bool((a[k] == b[k]).all()) for k in a)
+
+
+def host_phase(torch):
+    """The quickstart as written, on the card: ``compile(device="cuda")``
+    builds the host ``RecencySampler`` and the classic path (no packed
+    buffer on the batch). ``evaluate("val")`` through K3 (one launch per val
+    batch, none of K1) and with the plain version (MRR within MRR_TOL, the
+    sampler's state bit-equal); the first train steps held step by step;
+    one ``train_epoch()`` through K3 (one launch per train batch; its
+    backward is the plain recompute) and the same epoch with the plain
+    version from the same start (the sampler's state after them bit-equal;
+    loss and val MRR reported); last, the host-sampled and device-sampled
+    pipelines' neighborhoods, batch by batch, bit-equal over the warm pass
+    and the val batches."""
+    from repro_torch.core.tg_hooks import RecencyNeighborHook
+
+    t0 = time.perf_counter()
+    pipe = quickstart_host().compile(device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    check(any(isinstance(h, RecencyNeighborHook) for h in pipe.manager.hooks()),
+          "the quickstart spec did not build the host sampler")
+    n_val = math.ceil(pipe.val_data.num_edge_events / pipe.batch_size)
+    n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    ev, state, _ = eval_run(torch, pipe, None)
+    check(ev["launches"]["temporal_attention"] == n_val
+          and ev["launches"]["fused_temporal_layer"] == 0,
+          f"host eval launched K3 {ev['launches']['temporal_attention']} times "
+          f"for {n_val} val batches (K1 {ev['launches']['fused_temporal_layer']})")
+    ev_ref, state_ref, _ = eval_run(torch, pipe, "ref")
+    check(sum(ev_ref["launches"].values()) == 0, "fused='ref' launched a kernel")
+    check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
+          f"host val MRR {ev['mrr']} (K3) vs {ev_ref['mrr']} (plain)")
+    check(_states_equal(state, state_ref), "host sampler state differs between "
+                                           "the kernel and plain eval")
+
+    parity = step_parity(torch, pipe, PARITY_STEPS)
+
+    def restart():
+        pipe.load_params(init[0])
+        pipe.load_opt_state(init[1])
+
+    restart()
+    run = run_epoch(torch, pipe, None)
+    state = pipe.manager.state_dict()
+    check(run["launches"]["temporal_attention"] == n_train
+          and run["launches"]["fused_temporal_layer"] == 0
+          and run["launches"]["fused_temporal_layer_bwd"] == 0,
+          f"host train epoch launched K3 {run['launches']['temporal_attention']} "
+          f"times for {n_train} batches")
+    restart()
+    plain = run_epoch(torch, pipe, "ref")
+    check(sum(plain["launches"].values()) == 0, "fused='ref' launched a kernel")
+    state_ref = pipe.manager.state_dict()
+    for group in state:
+        check(_states_equal(state[group], state_ref[group]),
+              f"host sampler state {group!r} differs after the two epochs")
+    return dict(setup_seconds=setup_s, val_batches=n_val, train_batches=n_train,
+                eval=ev, eval_ref=ev_ref, step_parity=dict(steps=PARITY_STEPS, **parity),
+                kernels=run, plain=plain, sampler_state_bit_equal=True,
+                loss_diff=abs(run["loss"] - plain["loss"]),
+                mrr_diff=abs(run["val_mrr"] - plain["val_mrr"]),
+                neighborhoods=neighborhoods_check(torch, pipe))
+
+
+def neighborhoods_check(torch, host_pipe):
+    """The host-sampled pipeline's neighborhoods against the device
+    sampler's (``nbr_ids/times/eids/mask``), batch by batch, over the
+    warm pass through train and the val batches: bit-equal, as the
+    reference promises of its two samplers. Also the median time of each
+    loader's batch (its hooks and the staging on the card, closed by a
+    synchronise): train batches (S = 600) and scored val batches (S =
+    4,400)."""
+    from repro_torch.core import EVAL_KEY, TRAIN_KEY
+
+    def timed(loader, into):
+        it = iter(loader)
+        while True:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batch = next(it, None)
+            torch.cuda.synchronize()
+            if batch is None:
+                return
+            into.append(1e3 * (time.perf_counter() - t))
+            yield batch
+
+    dev = quickstart().compile(device=DEVICE)
+    counts, ms = {}, {}
+    for p in (host_pipe, dev):
+        p.reset_epoch_state()
+    for key, data in ((TRAIN_KEY, "train_data"), (EVAL_KEY, "val_data")):
+        n, th, td = 0, [], []
+        with host_pipe.manager.activate(key), dev.manager.activate(key):
+            for a, b in zip(timed(host_pipe._loader(getattr(host_pipe, data)), th),
+                            timed(dev._loader(getattr(dev, data)), td)):
+                for name in ("nbr_ids", "nbr_times", "nbr_eids", "nbr_mask"):
+                    check(a[name].device == b[name].device and torch.equal(a[name], b[name]),
+                          f"{data} batch {n}: {name} differs between the host "
+                          f"and device samplers")
+                n += 1
+        counts[data] = n
+        ms[data] = {"host_sampler_ms_per_batch": statistics.median(th),
+                    "device_sampler_ms_per_batch": statistics.median(td)}
+    check(counts["val_data"] == math.ceil(dev.val_data.num_edge_events / dev.batch_size),
+          "neighborhood check: val batch count")
+    return {"batches": counts, "bit_equal": True, "loader": ms}
+
+
+def tgn_experiment(device_sampler: bool):
+    """TGN at full width on full-scale synthetic ``wikipedia``: ``d_model``,
+    ``d_memory`` and ``d_time`` 100, 2 heads, the recency sampler with k = 10
+    on the host or the device, batch 200, 20 eval negatives."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, SamplerSpec, TrainSpec
+
+    return Experiment(
+        data=DataSpec("wikipedia", scale=1.0),
+        model=ModelSpec("tgn", {"d_model": 100, "d_memory": 100, "d_time": 100,
+                                "num_heads": 2}),
+        sampler=SamplerSpec(kind="recency", k=10, device=device_sampler),
+        train=TrainSpec(batch_size=200, eval_negatives=20))
+
+
+def memory_update_ms(torch, pipe):
+    """Time (ms, CUDA events, median of repeats) of one TGN memory update on
+    a full train batch: the message build, the last-event scatter and the
+    GRU over every node."""
+    from repro_torch.core import TRAIN_KEY
+
+    pipe.reset_epoch_state()
+    with pipe.manager.activate(TRAIN_KEY):
+        batch = next(iter(pipe._loader(pipe.train_data)))
+    state = pipe.model_state
+    with torch.no_grad():
+        return time_ms(torch, lambda: pipe._model.update_memory(
+            pipe.params, pipe.cfg, state, batch), 20)
+
+
+def tgn_phase(torch, data):
+    """TGN on both samplers through the user's entry point. For each:
+    ``evaluate("val")`` through the kernels (device sampler: K1 once per val
+    batch; host sampler: K3 once per val batch; the warm pass only advances
+    the memory) and with the plain version (MRR within MRR_TOL, the sampler
+    state and ``last_update`` bit-equal, the memory within ATOL/RTOL); the
+    first train steps held step by step (GRU gradients exactly zero); one
+    ``train_epoch()`` through the kernels (device: K1 and K2 once per train
+    batch; host: K3 once per batch) with val MRR after it; a checkpoint save
+    and restore on the card, bit-equal in parameters, optimizer, model state
+    and sampler state."""
+    import shutil
+
+    out = {}
+    for label, on_device in (("device", True), ("host", False)):
+        t0 = time.perf_counter()
+        pipe = tgn_experiment(on_device).compile(data=data, device=DEVICE)
+        setup_s = time.perf_counter() - t0
+        n_val = math.ceil(pipe.val_data.num_edge_events / pipe.batch_size)
+        n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
+        fwd = "fused_temporal_layer" if on_device else "temporal_attention"
+        init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+        ev, state, mstate = eval_run(torch, pipe, None)
+        launched = {k: v for k, v in ev["launches"].items() if v}
+        check(launched == {fwd: n_val},
+              f"TGN {label} eval launched {launched} for {n_val} val batches")
+        ev_ref, state_ref, mstate_ref = eval_run(torch, pipe, "ref")
+        check(sum(ev_ref["launches"].values()) == 0, "fused='ref' launched a kernel")
+        check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
+              f"TGN {label} val MRR {ev['mrr']} (kernels) vs {ev_ref['mrr']} (plain)")
+        check(_states_equal(state, state_ref), f"TGN {label}: sampler state differs")
+        check(torch.equal(mstate["last_update"], mstate_ref["last_update"]),
+              f"TGN {label}: last_update differs between the kernel and plain eval")
+        mem_err = compare(torch, mstate["memory"], mstate_ref["memory"],
+                          f"TGN {label} memory after evaluate")
+
+        parity = step_parity(torch, pipe, PARITY_STEPS)
+        pipe.load_params(init[0])
+        pipe.load_opt_state(init[1])
+        run = run_epoch(torch, pipe, None)
+        launched = {k: v for k, v in run["launches"].items() if v}
+        want = ({"fused_temporal_layer": n_train, "fused_temporal_layer_bwd": n_train}
+                if on_device else {"temporal_attention": n_train})
+        check(launched == want,
+              f"TGN {label} train epoch launched {launched} for {n_train} batches")
+        check(math.isfinite(run["loss"]), f"TGN {label} epoch loss {run['loss']}")
+
+        ck_dir = ROOT / "checkpoints" / f"chip_smoke_tgn_{label}"
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        try:
+            saved = (_tree_clone(pipe.params), _tree_clone(pipe.opt_state),
+                     _tree_clone(pipe.model_state), pipe.manager.state_dict())
+            pipe.save_checkpoint(str(ck_dir), 1)
+            pipe.load_params(init[0])
+            pipe.load_opt_state(init[1])
+            pipe.reset_epoch_state()
+            check(pipe.restore_checkpoint(str(ck_dir)) == 1, "TGN checkpoint step")
+            check(_trees_equal(torch, pipe.params, saved[0])
+                  and _trees_equal(torch, pipe.opt_state, saved[1])
+                  and _trees_equal(torch, pipe.model_state, saved[2])
+                  and pipe.model_state["last_update"].dtype == torch.int32
+                  and pipe.model_state["memory"].device == pipe.device,
+                  f"TGN {label}: checkpoint round trip changed the state")
+            restored = pipe.manager.state_dict()
+            for group in saved[3]:
+                check(_states_equal(restored[group], saved[3][group]),
+                      f"TGN {label}: checkpoint round trip changed the sampler state")
+        finally:
+            shutil.rmtree(ck_dir, ignore_errors=True)
+        update_ms = memory_update_ms(torch, pipe)
+        out[label] = dict(setup_seconds=setup_s, val_batches=n_val,
+                          train_batches=n_train, eval=ev, eval_ref=ev_ref,
+                          memory_max_abs_err=mem_err,
+                          step_parity=dict(steps=PARITY_STEPS, **parity),
+                          kernels=run, memory_update_ms=update_ms,
+                          checkpoint_bit_equal=True)
+        del pipe
+    return out
+
+
 def dtdg_profile_phase(torch, data, n_steps: int = 100, n_window: int = 30):
     """``--profile``: where a GCLSTM train step's time goes, by host clock
     with a synchronise closing each part (forward and loss, backward, AdamW;
@@ -1261,23 +1742,24 @@ def spread_phase(torch, rounds: int = 3):
             "max_mrr_diff": max(abs(m - base[1]) for _, (_, m) in runs)}
 
 
-def profile_phase(torch):
-    """``--profile``: where the main path's time goes, by host clock with a
-    device synchronise after each part (so each part's device work is
-    inside its own interval): the warm pass per batch, and per scored val
-    batch the hooks (sampling, negatives, staging), the model step and the
-    metric."""
+def profile_phase(torch, exp=None):
+    """``--profile``: where a path's time goes (``exp``, the device-sampler
+    quickstart by default), by host clock with a device synchronise after
+    each part (so each part's device work is inside its own interval): the
+    warm pass per batch, and per scored val batch the hooks (sampling,
+    negatives, staging), the model step and the metric."""
     from repro_torch.core import EVAL_KEY, TRAIN_KEY
     from repro_torch.train.metrics import mrr
 
-    pipe = quickstart().compile(device=DEVICE)
+    pipe = (exp or quickstart()).compile(device=DEVICE)
     sync = torch.cuda.synchronize
     pipe.reset_epoch_state()
     sync()
     t0 = time.perf_counter()
     n_warm = 0
     with pipe.manager.activate(TRAIN_KEY):
-        for _ in pipe._loader(pipe.train_data):
+        for batch in pipe._loader(pipe.train_data):
+            pipe._advance(batch)
             n_warm += 1
     sync()
     warm_s = time.perf_counter() - t0
@@ -1490,6 +1972,7 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1542,6 +2025,18 @@ def main() -> int:
             "epoch_loss": DTDG_EPOCH_LOSS_TOL, "epoch_val_mrr": DTDG_MRR_TOL},
             **dt})
 
+        k3, k3_cases = k3_phase(torch)
+        emit({"phase": "classic_kernels", "tolerance": {"atol": ATOL, "rtol": RTOL,
+                                                        "bf16": BF16_TOL},
+              "peaks": {"f32_flops": PEAK_F32_FLOPS, "bytes_per_s": PEAK_BYTES},
+              "shapes": k3, "degenerate": k3_cases})
+        ho = host_phase(torch)
+        emit({"phase": "host", "tolerance": {"val_mrr": MRR_TOL,
+                                             "step_loss": STEP_LOSS_TOL}, **ho})
+        tg = tgn_phase(torch, wiki)
+        emit({"phase": "tgn", "tolerance": {"val_mrr": MRR_TOL, "memory": ATOL,
+                                            "step_loss": STEP_LOSS_TOL}, **tg})
+
         if "--profile" in sys.argv[1:]:
             pipe, prof = profile_phase(torch)
             emit({"phase": "profile", **prof})
@@ -1556,21 +2051,31 @@ def main() -> int:
             pipe = dtdg_experiment().compile(data=wiki, device=DEVICE)
             emit({"phase": "dtdg_parity",
                   **dtdg_step_parity(torch, pipe, DTDG_PROFILE_PARITY_STEPS)})
+            pipe, prof = profile_phase(torch, quickstart_host())
+            emit({"phase": "host_profile", **prof})
+            emit({"phase": "host_trace", **trace_phase(torch, pipe)})
+            emit({"phase": "host_train_trace", **trace_phase(torch, pipe, train=True)})
+            for label, on_device in (("device", True), ("host", False)):
+                pipe = tgn_experiment(on_device).compile(data=wiki, device=DEVICE)
+                emit({"phase": f"tgn_{label}_train_trace",
+                      **trace_phase(torch, pipe, train=True)})
     except Exception as exc:  # any failed phase: no result line
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)
         return 1
 
     k1, k1w, k2 = results["K1_eval"], results["K1w_eval"], results["K2_train"]
+    k3e = k3["K3_eval"]
     k4 = seg["h_d64"]
-    by_path = {
-        "fused_temporal_layer": {
-            "eval": sl["launches"]["fused_temporal_layer"],
-            "train": tr["kernels"]["launches"]["fused_temporal_layer"]},
-        "fused_temporal_layer_bwd": {
-            "eval": sl["launches"]["fused_temporal_layer_bwd"],
-            "train": tr["kernels"]["launches"]["fused_temporal_layer_bwd"]},
-    }
+    paths = {"eval": sl, "train": tr["kernels"], "host_eval": ho["eval"],
+             "host_train": ho["kernels"], "tgn_device_eval": tg["device"]["eval"],
+             "tgn_device_train": tg["device"]["kernels"],
+             "tgn_host_eval": tg["host"]["eval"], "tgn_host_train": tg["host"]["kernels"]}
+    by_path = {name: {p: r["launches"][name] for p, r in paths.items()
+                      if r["launches"][name]}
+               for name in ("fused_temporal_layer", "fused_temporal_layer_bwd",
+                            "temporal_attention")}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_temporal_layer", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1,
@@ -1589,6 +2094,15 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "temporal_attention", "route": "cuda",
+        "source": TA_SOURCE, "replaces": TPU_K3,
+        "launches": sum(by_path["temporal_attention"].values()),
+        "launches_by_path": by_path["temporal_attention"],
+        "max_abs_err": max(k3["K3_train"]["max_abs_err"], k3e["max_abs_err"]),
+        "ms": k3e["ms"], "plain_ms": k3e["plain_ms"],
+        "bound_ms": k3e["bound_ms"], "bound_by": k3e["bound_by"],
+        "library_ms": k3e["library_ms"], "shape": "S=4400 K=10 H=2 D=50",
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": SEG_SOURCE, "replaces": TPU_K4,

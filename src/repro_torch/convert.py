@@ -6,9 +6,10 @@ reference's parameter pytree as nested dicts of numpy arrays (call
 ``jax.device_get`` on it first) and returns the same nesting of float32
 torch tensors; ``opt_state_from_jax`` does the same for an AdamW state
 ``{"mu", "nu", "step"}`` (int32 step), so both packages can start from the
-same parameters and optimizer state; ``state_from_jax`` moves a snapshot
-model's recurrent state (GCLSTM's ``(h, c)`` tuple, T-GCN's one array, the
-stateless GCN's ``()``). Weights keep the reference's
+same parameters and optimizer state; ``state_from_jax`` moves a model's
+state: a snapshot model's recurrent state (GCLSTM's ``(h, c)`` tuple,
+T-GCN's one array, the stateless GCN's ``()``) or TGN's ``{"memory",
+"last_update"}`` dict. Weights keep the reference's
 ``(d_in, d_out)`` layout, so every public function computes ``x @ w + b``
 on both sides and nothing is transposed out of sight.
 """
@@ -50,8 +51,13 @@ def opt_state_to_numpy(state):
 
 
 def state_from_jax(state, device="cpu"):
-    """A snapshot model's recurrent state (numpy leaves: ``()``, one array,
-    or a tuple of arrays) -> the same layout of float32 tensors."""
+    """A model's state (numpy leaves: ``()``, one array, a tuple of arrays or
+    a dict of them) -> the same layout of tensors: float32, and int32 for
+    integer leaves (TGN's ``last_update``)."""
+    if isinstance(state, dict):
+        return {k: state_from_jax(v, device) for k, v in state.items()}
     if isinstance(state, (tuple, list)):
         return tuple(state_from_jax(s, device) for s in state)
-    return torch.as_tensor(np.array(state, dtype=np.float32), device=device)
+    a = np.asarray(state)
+    dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)

@@ -1,12 +1,13 @@
 """Pre-defined hook recipes (paper §4).
 
 ``RECIPE_TGB_LINK`` builds the TGB link-prediction hook pipeline: random
-training negatives, one-vs-many eval negatives, device-resident recency
-neighbors, edge-feature lookup, padding and the device transfer. The port
-carries the device-recency branch of ``repro.core.recipes``
-(``SamplerSpec(kind="recency", device=True)``). ``RECIPE_DTDG_SNAPSHOT``
-builds the DTDG snapshot link pipeline's per-snapshot negatives. The host
-and uniform samplers and the other recipes are not part of the port yet.
+training negatives, one-vs-many eval negatives, recency neighbors,
+edge-feature lookup, padding and the device transfer. The port carries both
+recency branches of ``repro.core.recipes``: the host sampler
+(``SamplerSpec(kind="recency")``, the reference's default) and the
+device-resident one (``device=True``). ``RECIPE_DTDG_SNAPSHOT`` builds the
+DTDG snapshot link pipeline's per-snapshot negatives. The uniform samplers
+and the other recipes are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from repro_torch.core.tg_hooks import (
     EdgeFeatureLookupHook,
     NegativeEdgeHook,
     PadBatchHook,
+    RecencyNeighborHook,
     SnapshotNegativeHook,
     TGBEvalNegativesHook,
 )
@@ -74,13 +76,14 @@ def _tgb_link(
 ) -> HookManager:
     """Build the TGB link-prediction hook pipeline from a ``SamplerSpec``.
 
-    Only ``kind="recency"`` with ``device=True``, no ``shards`` and one hop
-    is ported; anything else raises ``NotImplementedError``.
+    Only ``kind="recency"`` (on the host, or with ``device=True`` on one
+    device), no ``shards`` and one hop is ported; anything else raises
+    ``NotImplementedError``.
     """
-    if spec.kind != "recency" or not spec.device or spec.shards:
+    if spec.kind != "recency" or spec.shards:
         raise NotImplementedError(
-            "the port's RECIPE_TGB_LINK carries the single-device recency "
-            "branch only (SamplerSpec(kind='recency', device=True)); host, "
+            "the port's RECIPE_TGB_LINK carries the recency branches on one "
+            "device (SamplerSpec(kind='recency'), host or device=True); "
             "uniform and sharded samplers are later slices (ROADMAP A)"
         )
     if spec.num_hops not in (None, 1):
@@ -101,9 +104,12 @@ def _tgb_link(
     )
     # One shared neighbor sampler serves both keys (updates exclude padding
     # and happen once per batch).
-    m.register(DeviceRecencyNeighborHook(num_nodes, spec.k, device=device,
-                                         expose_buffer=spec.expose_buffer,
-                                         edge_feats=edge_feats))
+    if spec.device:
+        m.register(DeviceRecencyNeighborHook(num_nodes, spec.k, device=device,
+                                             expose_buffer=spec.expose_buffer,
+                                             edge_feats=edge_feats))
+    else:
+        m.register(RecencyNeighborHook(num_nodes, spec.k))
     m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))
     m.register(DeviceTransferHook(device))
     return m

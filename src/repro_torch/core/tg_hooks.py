@@ -1,12 +1,13 @@
-"""Hook library for the device-recency link recipe (paper Table 2).
+"""Hook library for the recency link recipe (paper Table 2).
 
-PyTorch port of the device-sampling branch of ``repro.core.tg_hooks``:
-padding, train/eval negatives, device-resident recency neighbors (with the
-packed buffer exposed for the fused attention), edge-feature lookup and the
-device transfer. Negatives are drawn with numpy exactly as in the reference,
-so they are bit-equal. ``SnapshotNegativeHook`` serves the DTDG snapshot
-recipe. The host samplers, the uniform samplers and the analytics hooks are
-not part of the port yet.
+PyTorch port of the recency branches of ``repro.core.tg_hooks``: padding,
+train/eval negatives, recency neighbors on the host (``RecencyNeighborHook``,
+numpy circular buffers with batch-level de-duplication) or on the device
+(``DeviceRecencyNeighborHook``, with the packed buffer exposed for the fused
+attention), edge-feature lookup and the device transfer. Negatives are drawn
+with numpy exactly as in the reference, so they are bit-equal.
+``SnapshotNegativeHook`` serves the DTDG snapshot recipe. The uniform
+samplers and the analytics hooks are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
 from repro_torch.core.hooks import Hook
 from repro_torch.core.negatives import NegativeEdgeSampler, snapshot_negatives
+from repro_torch.core.sampler import RecencySampler
 from repro_torch.device import resolve_device
 
 _EDGE_TABLE_CACHE: OrderedDict = OrderedDict()
@@ -110,6 +112,84 @@ class TGBEvalNegativesHook(Hook):
         self._counter += 1
         B = len(batch["src"])
         batch["neg"] = rng.choice(self._pool, size=(B, self.num_negatives)).astype(np.int64)
+        return batch
+
+
+def _like(ref, x: np.ndarray):
+    """``x`` where the batch's ``ref`` attribute lives: unchanged when that
+    is a host array, else staged on its device as ``stage_batch`` stages
+    (int64 narrowed to int32)."""
+    if not isinstance(ref, torch.Tensor):
+        return x
+    if x.dtype == np.int64:
+        x = x.astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(ref.device)
+
+
+class RecencyNeighborHook(Hook):
+    """Temporal neighbor sampling from host recency circular buffers.
+
+    Seeds are the batch's ``[src | dst | neg...]`` nodes at the batch query
+    times; produces ``seed_nodes``/``seed_times`` (S,) and
+    ``nbr_ids/nbr_times/nbr_eids/nbr_mask`` (S, K), then reveals the batch's
+    positive edges to the sampler (predict-then-reveal; padded events are
+    left out through ``batch_mask``). Each distinct seed node is sampled
+    once and the rows are gathered back to the full seed list (the paper's
+    batch-level de-duplication, §5.1, the reference's ``dedup=True``):
+    exact, since the buffers do not change while a batch is sampled. The
+    hop-2 frontier waits for 2-layer TGAT (ROADMAP A).
+
+    The sampling runs in numpy on the host (``RecencySampler``). The
+    recipe's contract-free ``DeviceTransferHook`` runs before this hook
+    (``resolve_order``), so the batch's events may already be on the device:
+    the hook then reads them back and hands its outputs to that device, so
+    that the edge-feature lookup after it gathers on the device. The values
+    are those the reference's host hook gives.
+    """
+
+    def __init__(self, num_nodes: int, k: int):
+        super().__init__(requires={"src", "dst", "time", "neg"}, produces={
+            "seed_nodes", "seed_times", "nbr_ids", "nbr_times", "nbr_eids",
+            "nbr_mask"})
+        self.sampler = RecencySampler(num_nodes, k)
+        self.k = k
+
+    def reset_state(self) -> None:
+        """Clear the host circular buffers (start of an epoch)."""
+        self.sampler.reset_state()
+
+    def state_dict(self) -> dict:
+        """Checkpoint the sampler buffers (shared host/device contract)."""
+        return self.sampler.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore sampler buffers saved by any recency sampler."""
+        self.sampler.load_state_dict(state)
+
+    def __call__(self, batch: Batch) -> Batch:
+        """Sample the neighborhoods, then reveal the batch's positive edges
+        to the sampler."""
+        ref = batch["src"]
+        src, dst, t = _host(ref), _host(batch["dst"]), _host(batch["time"])
+        neg = _host(batch["neg"])  # (B, Nneg)
+        seed_nodes = np.concatenate([src, dst, neg.reshape(-1)]).astype(np.int64)
+        seed_times = np.concatenate(
+            [t, t, np.repeat(t, neg.shape[1])]).astype(np.int64)
+        uniq, inverse = np.unique(seed_nodes, return_inverse=True)
+        blk = self.sampler.sample(uniq)
+        for key, x in (("seed_nodes", seed_nodes), ("seed_times", seed_times),
+                       ("nbr_ids", blk.nbr_ids[inverse]),
+                       ("nbr_times", blk.nbr_times[inverse]),
+                       ("nbr_eids", blk.nbr_eids[inverse]),
+                       ("nbr_mask", blk.mask[inverse])):
+            batch[key] = _like(ref, x)
+
+        eids = batch.meta.get("eids")
+        if "batch_mask" in batch:  # exclude padded events from state
+            m = _host(batch["batch_mask"]).astype(bool)
+            src, dst, t = src[m], dst[m], t[m]
+            eids = None if eids is None else eids[m[: len(eids)]]
+        self.sampler.update(src, dst, t, eids)
         return batch
 
 

@@ -1,5 +1,6 @@
-"""Fused temporal neighbor attention: the CUDA kernels (forward and
-backward), their plain versions and the ``mode=`` dispatch."""
+"""Temporal neighbor attention: the CUDA kernels (the fused layer forward
+and backward, and the classic path's masked attention), their plain
+versions and the ``mode=`` dispatch."""
 
 from repro_torch.kernels.temporal_attention.kernel import (
     LAUNCHES,
@@ -7,15 +8,18 @@ from repro_torch.kernels.temporal_attention.kernel import (
     fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
     reset_launches,
+    temporal_attention_kernel,
 )
 from repro_torch.kernels.temporal_attention.ops import (
     fused_recency_attention,
     fused_temporal_layer,
+    temporal_attention,
 )
 from repro_torch.kernels.temporal_attention.ref import (
     fused_recency_attention_ref,
     fused_temporal_layer_bwd_ref,
     fused_temporal_layer_ref,
+    temporal_attention_ref,
 )
 
 __all__ = [
@@ -29,4 +33,7 @@ __all__ = [
     "fused_temporal_layer_kernel",
     "fused_temporal_layer_ref",
     "reset_launches",
+    "temporal_attention",
+    "temporal_attention_kernel",
+    "temporal_attention_ref",
 ]

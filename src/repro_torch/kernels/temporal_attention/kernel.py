@@ -20,6 +20,13 @@ on the current stream, raises on a CUDA error, and adds one to its entry in
 and returns every gradient of the layer (``fused_temporal_layer_bwd_kernel``
 here). The wrappers take no part in autograd themselves:
 ``ops._FusedLayerFn`` pairs the two into one differentiable call.
+
+``csrc/temporal_attention.cu`` replaces the TPU kernel
+``temporal_attention_kernel`` (``kernel.py:100`` of the reference): masked
+seed -> K-neighbor attention over pre-gathered (S, K, H, D) keys and values,
+the attention core of the classic path. ``temporal_attention_kernel`` is
+its wrapper (forward only, as in the reference; ``ops._TemporalAttentionFn``
+differentiates the plain version by recompute).
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_temporal_layer.cu"
 BWD_SOURCE = SOURCE.with_name("fused_temporal_layer_bwd.cu")
+TA_SOURCE = SOURCE.with_name("temporal_attention.cu")
 
 LAUNCHES = {"fused_temporal_layer": 0, "fused_recency_attention": 0,
-            "fused_temporal_layer_bwd": 0}
+            "fused_temporal_layer_bwd": 0, "temporal_attention": 0}
 
 _lib = None
 _bwd_lib = None
+_ta_lib = None
 
 
 def reset_launches() -> None:
@@ -78,6 +87,22 @@ def _bwd_library():
         lib.fused_temporal_layer_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _ta_library():
+    global _ta_lib
+    if _ta_lib is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load(TA_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.temporal_attention_fwd.argtypes = [p] * 5 + [i] * 5 + [
+            ctypes.c_float, p]
+        lib.temporal_attention_fwd.restype = i
+        lib.temporal_attention_error_string.argtypes = [i]
+        lib.temporal_attention_error_string.restype = ctypes.c_char_p
+        _ta_lib = lib
+    return _ta_lib
 
 
 def _check(t, name, dtype, shape, device):
@@ -244,3 +269,51 @@ def fused_temporal_layer_bwd_kernel(
     if d_edge:
         grads.update(we_k=dwe[0], we_v=dwe[1])
     return grads
+
+
+# Storage types K3 takes, by the code its C interface expects.
+_TA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def temporal_attention_kernel(q, k, v, mask, *, scale: float | None = None):
+    """Masked seed -> K-neighbor attention on the GPU (K3).
+
+    q: (S, H, D); k, v: (S, K, H, D), all float32 or all bfloat16; mask:
+    (S, K) bool; every tensor contiguous on one CUDA device. Returns a new
+    (S, H, D) tensor of q's dtype: ``softmax((q . k) * scale)`` over the
+    valid slots applied to v (scale 1/sqrt(D) unless given), exact zeros for
+    a seed with no valid slot. Any S (0 too), K >= 1 and D.
+    """
+    if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
+        raise ValueError(
+            "the temporal attention kernel runs on CUDA tensors (use "
+            "mode='ref' or 'auto' for the plain version)")
+    if q.dtype not in _TA_DTYPES or q.dim() != 3:
+        raise TypeError(f"q must be a float32 or bfloat16 (S, H, D) tensor, "
+                        f"got {q.dtype} {tuple(q.shape)}")
+    S, H, D = q.shape
+    if k.dim() != 4:
+        raise ValueError(f"k must be (S, K, H, D), got {tuple(k.shape)}")
+    K = k.shape[1]
+    dev = q.device
+    _check(q, "q", q.dtype, (S, H, D), dev)
+    _check(k, "k", q.dtype, (S, K, H, D), dev)
+    _check(v, "v", q.dtype, (S, K, H, D), dev)
+    _check(mask, "mask", torch.bool, (S, K), dev)
+    if K < 1 or H < 1 or D < 1:
+        raise ValueError(f"unsupported sizes K={K}, H={H}, D={D}")
+    out = torch.empty((S, H, D), dtype=q.dtype, device=dev)
+    if S == 0:
+        return out
+    lib = _ta_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.temporal_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), S, H, D, K, _TA_DTYPES[q.dtype],
+            float(scale if scale is not None else 1.0 / math.sqrt(D)), stream)
+    if err:
+        msg = lib.temporal_attention_error_string(err).decode()
+        raise RuntimeError(f"temporal_attention launch failed: {msg} ({err})")
+    LAUNCHES["temporal_attention"] += 1
+    return out

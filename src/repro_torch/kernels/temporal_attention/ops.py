@@ -1,5 +1,9 @@
-"""Public fused temporal attention ops with ``mode=`` dispatch.
+"""Public temporal attention ops with ``mode=`` dispatch.
 
+``temporal_attention``       — masked seed -> K-neighbor attention over
+                               pre-gathered (S, K, H, D) keys and values,
+                               the classic path's core (kernel
+                               ``temporal_attention``).
 ``fused_temporal_layer``     — the TGAT layer-0 compute over the packed
                                recency buffer, with the time and edge bias
                                folds (kernel ``fused_temporal_layer``).
@@ -17,7 +21,11 @@ through ``_FusedLayerFn``, the counterpart of the reference's custom VJP
 (``repro.kernels.temporal_attention.ops._fused_layer_call``): its forward
 launches the forward kernel and saves only the operands, its backward
 launches the backward kernel, which recomputes the attention. On the CPU
-plain autograd differentiates the plain version.
+plain autograd differentiates the plain version. ``temporal_attention``
+is differentiable through ``_TemporalAttentionFn``: the reference's kernel
+is forward only (its VJP is XLA's, of the jnp oracle), so the forward
+launches the kernel and the backward differentiates the plain version by
+recompute, in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,17 +37,21 @@ from repro_torch.kernels.temporal_attention.kernel import (
     fused_recency_attention_kernel,
     fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
+    temporal_attention_kernel,
 )
 from repro_torch.kernels.temporal_attention.ref import (
     GRAD_NAMES,
     fused_recency_attention_ref,
     fused_temporal_layer_ref,
+    temporal_attention_ref,
 )
 
 # The two launches of ``_FusedLayerFn``. Module attributes so that the CPU
 # tests can stand the plain versions in for them; nothing else rebinds them.
 _FWD = fused_temporal_layer_kernel
 _BWD = fused_temporal_layer_bwd_kernel
+# The forward launch of ``_TemporalAttentionFn``, a test seam likewise.
+_TA_FWD = temporal_attention_kernel
 
 # Names of ``_FusedLayerFn``'s positional arguments, in order. Its backward
 # returns a gradient for those in ``GRAD_NAMES`` and None for the rest
@@ -116,3 +128,41 @@ def fused_recency_attention(q, k_table, v_table, seeds, buf_ids, *,
         q.contiguous(), k_table.contiguous(), v_table.contiguous(),
         seeds.to(torch.int32).contiguous(),
         buf_ids.to(torch.int32).contiguous())
+
+
+class _TemporalAttentionFn(torch.autograd.Function):
+    """K3 with the plain version's gradient, by recompute.
+
+    ``forward`` launches the kernel and saves q, k, v and the mask;
+    ``backward`` runs the plain version on them under autograd and returns
+    its gradients for q, k and v (masked slots and rows with no valid slot
+    get exact zeros, as the plain version's ``where``s give).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _TA_FWD(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            out = temporal_attention_ref(*leaves, mask)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None
+
+
+def temporal_attention(q, k, v, mask, *, mode: str = "auto"):
+    """Masked seed -> K-neighbor attention over pre-gathered keys/values.
+
+    q: (S, H, D); k, v: (S, K, H, D); mask: (S, K) bool -> (S, H, D) in q's
+    dtype, zero rows where a seed has no valid neighbor (scale 1/sqrt(D)).
+    Differentiable in q, k and v on every path.
+    """
+    if not use_kernel(mode, q):
+        return temporal_attention_ref(q, k, v, mask)
+    return _TemporalAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                      v.contiguous(),
+                                      mask.to(torch.bool).contiguous())

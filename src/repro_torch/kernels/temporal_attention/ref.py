@@ -1,6 +1,9 @@
-"""Plain PyTorch versions of the fused temporal attention kernels.
+"""Plain PyTorch versions of the temporal attention kernels.
 
-Materializing twins of ``repro.kernels.temporal_attention.ref``: they build
+``temporal_attention_ref`` is the twin of
+``repro.kernels.temporal_attention.ref.temporal_attention_ref``: masked
+seed -> K-neighbor attention over pre-gathered keys and values. The rest are
+materializing twins of ``repro.kernels.temporal_attention.ref``: they build
 every intermediate the CUDA kernel keeps in shared memory — the gathered
 (S, K, H, D) node-level k/v rows, the Bochner time bias
 ``phi(t_seed - t_nbr) @ wt`` and the edge bias ``edge_feats[eid] @ we`` —
@@ -18,6 +21,22 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def temporal_attention_ref(q, k, v, mask, *, scale: float | None = None):
+    """Seed-to-neighborhood attention (the classic TGAT/TGN layer core).
+
+    q: (S, H, D) seed queries; k, v: (S, K, H, D) per-seed neighbor keys and
+    values; mask: (S, K) bool neighbor validity. Scores in float32, scaled by
+    1/sqrt(D) unless ``scale`` is given. Returns (S, H, D) in q's dtype; a
+    row with no valid neighbor is exactly zero.
+    """
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("shd,skhd->shk", q.float(), k.float()) * scale
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None], p, 0.0)
+    return torch.einsum("shk,skhd->shd", p, v.float()).to(q.dtype)
 
 
 def fused_temporal_layer_ref(

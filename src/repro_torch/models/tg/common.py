@@ -126,16 +126,29 @@ def fused_mode(fused, batch):
     the fused path whenever the batch carries the packed buffer
     (``nbr_buf``): the CUDA kernel for CUDA tensors, its plain version on
     the CPU. ``False`` forces the classic path (the numerical oracle);
-    ``True``/``"kernel"``/``"ref"`` force the fused path and need ``nbr_buf``.
+    ``True`` forces the fused path and needs ``nbr_buf``. ``"ref"`` and
+    ``"kernel"`` pick the plain version or the kernel of whichever path the
+    batch allows: the fused one with ``nbr_buf``, else the classic one
+    (whose attention mode ``classic_mode`` gives).
     """
     if fused is False:
         return None
     if fused is None or fused == "auto":
         return "auto" if "nbr_buf" in batch else None
     if "nbr_buf" not in batch:
+        if fused in ("ref", "kernel"):
+            return None
         raise ValueError(
             "fused temporal attention requires the resident packed buffer "
             "(batch has no 'nbr_buf'): build RECIPE_TGB_LINK with "
             "SamplerSpec(device=True) and expose_buffer left on"
         )
     return "auto" if fused is True else fused
+
+
+def classic_mode(fused) -> str:
+    """The ``temporal_attention`` mode of the classic path for a model's
+    ``fused`` argument: ``"ref"`` (the plain version) and ``"kernel"``
+    carry over; anything else is ``"auto"`` (the CUDA kernel for CUDA
+    tensors)."""
+    return fused if fused in ("ref", "kernel") else "auto"

@@ -8,8 +8,9 @@ When the batch carries the device sampler's packed buffer (``nbr_buf``),
 ``embed`` computes the layer's attention with ``fused_temporal_layer`` —
 node-level k/v tables plus in-kernel time/edge bias folds, the hand-written
 CUDA kernel on the GPU — so the ``(S, K, H, Dh)`` neighbor tensors never
-exist in device memory. ``fused=False`` keeps the classic pre-gathered path
-as the numerical oracle. The port covers ``num_layers=1``; two layers need
+exist in device memory. Without the buffer (the host sampler), or with
+``fused=False``, the classic pre-gathered path runs, its masked attention in
+the CUDA kernel ``temporal_attention`` on the GPU. The port covers ``num_layers=1``; two layers need
 the hop-2 and final-hop kernel variants (ROADMAP A, 2-layer TGAT).
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.models.tg.common import (
     all_node_features,
+    classic_mode,
     fused_mode,
     link_decoder_init,
     link_logits,
@@ -79,8 +81,10 @@ def init(cfg: TGATConfig, generator: torch.Generator, device="cpu"):
     return params
 
 
-def _layer(params, l, cfg, h_seed, seed_t, h_nbr, nbr_t, nbr_feats, nbr_mask):
-    """One classic TGAT layer. h_seed: (S,d); h_nbr: (S,K,d); returns (S,d)."""
+def _layer(params, l, cfg, h_seed, seed_t, h_nbr, nbr_t, nbr_feats, nbr_mask,
+           mode="auto"):
+    """One classic TGAT layer. h_seed: (S,d); h_nbr: (S,K,d); returns (S,d).
+    ``mode`` is the attention's (``temporal_attention``) dispatch."""
     dt_seed = time_encode(params["time"],
                           torch.zeros(seed_t.shape, dtype=torch.float32,
                                       device=seed_t.device))
@@ -90,7 +94,7 @@ def _layer(params, l, cfg, h_seed, seed_t, h_nbr, nbr_t, nbr_feats, nbr_mask):
     kv = [h_nbr, enc] if nbr_feats is None else [h_nbr, nbr_feats, enc]
     kv = torch.cat(kv, dim=-1)
     att = seed_neighbor_attention(params[f"attn_{l}"], q, kv, nbr_mask,
-                                  num_heads=cfg.num_heads)
+                                  num_heads=cfg.num_heads, mode=mode)
     return mlp(params[f"merge_{l}"], torch.cat([att, h_seed], dim=-1))
 
 
@@ -116,8 +120,8 @@ def embed(params, cfg: TGATConfig, batch, static_feats=None, fused=None):
 
     ``fused`` selects the path (``models.tg.common.fused_mode``):
     ``None``/"auto" fuses whenever the batch has ``nbr_buf``; ``False``
-    forces the classic pre-gathered path; "ref"/"kernel" force a fused
-    implementation.
+    forces the classic pre-gathered path; "ref"/"kernel" force the plain
+    version or the kernel of the path the batch allows.
     """
     _require_one_layer(cfg)
     mode = fused_mode(fused, batch)
@@ -130,7 +134,7 @@ def embed(params, cfg: TGATConfig, batch, static_feats=None, fused=None):
     h_seed0 = node_features(params["nodes"], seeds, static_feats)
     h_nbr0 = node_features(params["nodes"], nbr_ids, static_feats)
     return _layer(params, 0, cfg, h_seed0, seed_t, h_nbr0, nbr_t, nbr_feats,
-                  batch["nbr_mask"])
+                  batch["nbr_mask"], mode=classic_mode(fused))
 
 
 def link_scores(params, cfg: TGATConfig, batch, batch_size: int,

@@ -1,9 +1,11 @@
 """Multi-head attention primitives for the TG model zoo.
 
-``mha`` / ``seed_neighbor_attention`` are the classic path over a
-pre-gathered ``(S, K, Dkv)`` neighbor tensor; ``fused_seed_neighbor_attention``
-is its fused twin over the device sampler's packed buffer, whose attention
-runs in the hand-written CUDA kernel on the GPU
+``mha`` is plain multi-head attention (any number of queries);
+``seed_neighbor_attention`` is the classic path over a pre-gathered
+``(S, K, Dkv)`` neighbor tensor, one query per seed, whose attention core
+runs in the hand-written CUDA kernel ``temporal_attention`` on the GPU;
+``fused_seed_neighbor_attention`` is its fused twin over the device
+sampler's packed buffer, whose attention runs in the fused layer's kernel
 (``kernels.temporal_attention``).
 """
 
@@ -61,15 +63,25 @@ def mha(params, q_in, kv_in, mask=None, num_heads: int = 2):
 
 
 def seed_neighbor_attention(params, seed_feat, nbr_feat, nbr_mask,
-                            num_heads: int = 2):
+                            num_heads: int = 2, mode: str = "auto"):
     """TGAT-style: one query (the seed) attends over its K neighbors.
 
     seed_feat: (S, Dq); nbr_feat: (S, K, Dkv); nbr_mask: (S, K) bool.
-    Returns (S, d_model).
+    Returns (S, d_model). The projections are ``mha``'s; the masked
+    attention is ``temporal_attention`` (``mode`` forwarded: the CUDA kernel
+    for CUDA tensors under "auto"). It masks with -1e30 where ``mha`` masks
+    with -1e9: the same weights for a seed with a valid neighbor, and exact
+    zeros for one without, in both.
     """
-    out = mha(params, seed_feat[:, None, :], nbr_feat, nbr_mask[:, None, :],
-              num_heads=num_heads)
-    return out[:, 0, :]
+    from repro_torch.kernels.temporal_attention import temporal_attention
+
+    h = num_heads
+    q = _split_heads(dense(params["q"], seed_feat), h)  # (S, H, dh)
+    k = _split_heads(dense(params["k"], nbr_feat), h)   # (S, K, H, dh)
+    v = _split_heads(dense(params["v"], nbr_feat), h)
+    out = temporal_attention(q, k, v, nbr_mask, mode=mode)
+    S, H, dh = out.shape
+    return dense(params["o"], out.reshape(S, H * dh))
 
 
 def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,

@@ -117,7 +117,8 @@ class SamplerSpec(_SpecBase):
     queue depth; the port's pipeline runs its hooks in the calling thread
     and does not read it. ``checkpoint_adjacency``, ``shards``, ``mesh_axis`` and
     ``partition`` are the reference's uniform-sampler and mesh options. The
-    port runs ``kind="recency", device=True`` on one device.
+    port runs ``kind="recency"``, on the host (the default) or with
+    ``device=True``, on one device.
     """
 
     kind: str = "recency"
@@ -157,7 +158,7 @@ class ModelSpec(_SpecBase):
     """A model-zoo name plus its config kwargs.
 
     CTDG link models: ``tgat``, ``tgn``, ``graphmixer``, ``dygformer``,
-    ``tpnet`` (the port runs ``tgat``); snapshot (DTDG) models: ``gcn``,
+    ``tpnet`` (the port runs ``tgat`` and ``tgn``); snapshot (DTDG) models: ``gcn``,
     ``gclstm``, ``tgcn``. ``kwargs`` feed the model config (e.g.
     ``{"num_layers": 1}`` for TGAT, ``{"d_embed": 64}`` for the snapshot
     models) and must stay JSON-serializable.

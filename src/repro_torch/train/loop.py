@@ -1,10 +1,12 @@
 """Link prediction pipelines (CTDG and DTDG) and the epoch engine.
 
-  * ``CTDGLinkPipeline`` — the TGB link recipe over the device recency
-    sampler, 1-layer TGAT and one-vs-many MRR, on one device
-    (``device="cuda"`` by default): ``train_epoch`` (masked BCE, backward
-    through the fused layer's backward kernel, AdamW), ``evaluate(split)``
-    and checkpoints, following ``repro.train.loop.CTDGLinkPipeline``.
+  * ``CTDGLinkPipeline`` — the TGB link recipe over the recency sampler
+    (on the host, or on the device), 1-layer TGAT or TGN and one-vs-many
+    MRR, on one device (``device="cuda"`` by default): ``train_epoch``
+    (masked BCE, backward through the fused layer's backward kernel or the
+    classic attention's recompute, AdamW), ``evaluate(split)`` and
+    checkpoints, with TGN's memory threaded through as ``model_state``,
+    following ``repro.train.loop.CTDGLinkPipeline``.
     The hooks and the staging of each batch run in the calling thread,
     between steps: with an eager step, ``PrefetchLoader``'s producer thread
     (the reference's choice when its sampler is on the device) contends
@@ -54,7 +56,7 @@ from repro_torch.core.batch import Batch
 from repro_torch.core.tg_hooks import stage_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.models.tg import snapshot, tgat
+from repro_torch.models.tg import snapshot, tgat, tgn
 from repro_torch.models.tg.common import bce_link_loss, link_decoder
 from repro_torch.obs import MemorySink, Telemetry
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -62,7 +64,11 @@ from repro_torch.tg.specs import SamplerSpec
 from repro_torch.train.metrics import mrr
 from repro_torch.tree import tree_leaves, tree_map
 
-CTDG_LINK_MODELS = {"tgat", "graphmixer", "dygformer", "tgn", "tpnet"}
+CTDG_STATEFUL = {"tgn", "tpnet"}
+CTDG_LINK_MODELS = {"tgat", "graphmixer", "dygformer"} | CTDG_STATEFUL
+# The ported CTDG models: module with ``init``/``link_scores`` (and, when
+# stateful, ``init_state``/``update_memory``) and its config class.
+_CTDG_PORTED = {"tgat": (tgat, tgat.TGATConfig), "tgn": (tgn, tgn.TGNConfig)}
 
 
 # ----------------------------------------------------------------------
@@ -271,18 +277,23 @@ class _ParamsAndOptimizer:
 class CTDGLinkPipeline(_ParamsAndOptimizer):
     """CTDG link prediction over the TGB link recipe.
 
-    Ported: ``model_name="tgat"`` (1 layer) with
-    ``SamplerSpec(kind="recency", device=True)``; other models and
-    samplers raise ``NotImplementedError``. Parameters are leaf tensors
-    with ``requires_grad``, from the port's seeded init (``torch.Generator``
-    seeded with ``seed``) or from ``load_params`` (e.g. the reference's,
-    via ``repro_torch.convert.params_from_jax``); the AdamW state
-    (``lr``, default 1e-4) from ``adamw_init`` or ``load_opt_state``.
-    ``fused`` forwards to ``tgat.link_scores``: ``None`` runs the fused
-    path (the CUDA kernels on the GPU, their plain version on the CPU),
-    ``"ref"`` forces the plain version, ``False`` the classic pre-gathered
-    path. ``telemetry`` (a ``repro_torch.obs.Telemetry``) instruments the
-    epochs, steps and the loader.
+    Ported: ``model_name`` "tgat" (1 layer) and "tgn", with
+    ``SamplerSpec(kind="recency")`` on the host (the default, as in the
+    reference) or with ``device=True``; other models and samplers raise
+    ``NotImplementedError``. Parameters are leaf tensors with
+    ``requires_grad``, from the port's seeded init (``torch.Generator``
+    seeded with ``seed``) or from ``load_params`` (e.g. the reference's, via
+    ``repro_torch.convert.params_from_jax``); the AdamW state (``lr``,
+    default 1e-4) from ``adamw_init`` or ``load_opt_state``. A stateful
+    model (``CTDG_STATEFUL``: TGN's memory) keeps ``model_state``, reset
+    with the epoch, advanced by every batch, saved with the checkpoint and
+    installed by ``load_model_state``. ``fused`` forwards to the model's
+    ``link_scores``: ``None`` runs the fused path when the batch carries the
+    device sampler's buffer and the classic path otherwise (the CUDA
+    kernels on the GPU, their plain versions on the CPU), ``"ref"`` the
+    plain version of that path, ``False`` the classic path. ``telemetry``
+    (a ``repro_torch.obs.Telemetry``) instruments the epochs, steps and the
+    loader.
     """
 
     def __init__(
@@ -304,16 +315,16 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     ):
         if model_name not in CTDG_LINK_MODELS:
             raise ValueError(f"unknown CTDG model {model_name!r}")
-        if model_name != "tgat":
+        if model_name not in _CTDG_PORTED:
             raise NotImplementedError(
                 f"{model_name!r} is not ported yet (ROADMAP A: the rest of "
-                f"the CTDG zoo); the port runs 'tgat'")
-        spec = sampler_spec or SamplerSpec(k=k, device=True)
-        if spec.kind != "recency" or not spec.device or spec.shards:
+                f"the CTDG zoo); the port runs {sorted(_CTDG_PORTED)}")
+        spec = sampler_spec or SamplerSpec(k=k)
+        if spec.kind != "recency" or spec.shards:
             raise NotImplementedError(
-                "the port's pipeline runs the single-device recency sampler "
-                "(SamplerSpec(kind='recency', device=True)); other samplers "
-                "are later slices (ROADMAP A)")
+                "the port's pipeline runs the recency sampler on one device "
+                "(SamplerSpec(kind='recency'), host or device=True); other "
+                "samplers are later slices (ROADMAP A)")
         self.device = resolve_device(device)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.model_name = model_name
@@ -326,15 +337,19 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
 
         d_edge = data.edge_feat_dim
         n = data.num_nodes
-        self.cfg = tgat.TGATConfig(num_nodes=n, d_edge=d_edge, k=spec.k,
-                                   **dict(model_kwargs or {}))
+        self._model, config = _CTDG_PORTED[model_name]
+        self.cfg = config(num_nodes=n, d_edge=d_edge, k=spec.k,
+                          **dict(model_kwargs or {}))
         gen = torch.Generator().manual_seed(seed)
-        self.load_params(tgat.init(self.cfg, gen, device=self.device))
+        self.load_params(self._model.init(self.cfg, gen, device=self.device))
+        self.stateful = model_name in CTDG_STATEFUL
+        self.model_state = (self._model.init_state(self.cfg, self.device)
+                            if self.stateful else None)
 
         self.manager = RecipeRegistry.build(
             RECIPE_TGB_LINK,
             num_nodes=n,
-            spec=SamplerSpec(kind="recency", k=self.cfg.k, device=True,
+            spec=SamplerSpec(kind="recency", k=self.cfg.k, device=spec.device,
                              expose_buffer=spec.expose_buffer),
             batch_size=batch_size,
             eval_negatives=eval_negatives,
@@ -347,6 +362,15 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         )
         self.opt_cfg = AdamWConfig(lr=1e-4 if lr is None else lr)
         self.opt_state = adamw_init(self.params)
+
+    def load_model_state(self, state) -> None:
+        """Install a stateful model's state (tensors or arrays, e.g. the
+        reference's via ``repro_torch.convert.state_from_jax``) on the
+        pipeline's device, each leaf in the dtype of the model's
+        ``init_state`` (TGN: float32 memory, int32 ``last_update``)."""
+        proto = self._model.init_state(self.cfg, "cpu")
+        self.model_state = tree_map(
+            lambda t, p: _on_device(t, self.device, p.dtype), state, proto)
 
     def _loader(self, data: DGData):
         """Hook-processed batches of ``data`` with every host array staged
@@ -366,32 +390,66 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                 staged = stage_batch(batch, self.device)
             yield staged
 
+    def _scores(self, batch):
+        """``((pos, neg), new_state)``: the link logits of ``batch`` and the
+        model state after it (``None`` for a stateless model; a stateful
+        model's new state carries no autograd graph)."""
+        if self.stateful:
+            return self._model.link_scores(
+                self.params, self.cfg, self.model_state, batch,
+                self.batch_size, fused=self.fused)
+        return self._model.link_scores(self.params, self.cfg, batch,
+                                       self.batch_size,
+                                       fused=self.fused), None
+
+    def _loss_and_state(self, batch):
+        """The masked BCE link loss of ``batch`` (forward pass) and the
+        model state after the batch."""
+        (pos, neg), new_state = self._scores(batch)
+        return bce_link_loss(pos, neg, batch["batch_mask"]), new_state
+
     def _loss(self, batch) -> torch.Tensor:
         """The masked BCE link loss of ``batch`` (forward pass)."""
-        pos, neg = tgat.link_scores(self.params, self.cfg, batch,
-                                    self.batch_size, fused=self.fused)
-        return bce_link_loss(pos, neg, batch["batch_mask"])
+        return self._loss_and_state(batch)[0]
 
     def _train_step(self, batch) -> torch.Tensor:
-        """Loss, backward and one AdamW update on ``batch`` (the stateless
-        step of the reference); returns the loss as a device scalar, so
-        nothing is read back to the host."""
-        loss = self._loss(batch)
+        """Loss, backward and one AdamW update on ``batch``, then the model
+        state after it (the reference's step: the state is an input, the
+        new state an auxiliary output, so no gradient reaches it); returns
+        the loss as a device scalar, so nothing is read back to the host."""
+        loss, new_state = self._loss_and_state(batch)
         self._update(self._grads(loss))
+        if self.stateful:
+            self.model_state = new_state
         return loss.detach()
 
     def _eval_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The link logits of ``batch``; a stateful model's state moves on."""
         with torch.no_grad():
-            return tgat.link_scores(self.params, self.cfg, batch,
-                                    self.batch_size, fused=self.fused)
+            logits, new_state = self._scores(batch)
+        if self.stateful:
+            self.model_state = new_state
+        return logits
+
+    def _advance(self, batch) -> None:
+        """Move a stateful model's state past ``batch`` without scoring it
+        (the warm passes): the state the reference's eval step returns, whose
+        scores it throws away."""
+        if self.stateful:
+            with torch.no_grad():
+                self.model_state = self._model.update_memory(
+                    self.params, self.cfg, self.model_state, batch)
 
     def reset_epoch_state(self) -> None:
-        """Clear hook/sampler state for an epoch."""
+        """Clear hook/sampler state (and the model state) for an epoch."""
         self.manager.reset_state()
+        if self.stateful:
+            self.model_state = self._model.init_state(self.cfg, self.device)
 
     # -- checkpointing ---------------------------------------------------
-    # The sampler buffers ride along with the parameters and optimizer
-    # state, so a restored run resumes mid-stream with warm neighbor state.
+    # The sampler buffers (and a stateful model's state) ride along with the
+    # parameters and optimizer state, so a restored run resumes mid-stream
+    # with warm neighbor state.
     def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
         """Write a checkpoint (atomic step directory). Returns its path."""
         tree = {
@@ -399,17 +457,23 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
             "opt_state": self.opt_state,
             "hooks": self.manager.state_dict(),
         }
+        if self.stateful:
+            tree["model_state"] = self.model_state
         return save_bundle(ckpt_dir, step, tree, self.model_name)
 
     def restore_checkpoint(self, ckpt_dir: str,
                            step: Optional[int] = None) -> int:
-        """Restore params, optimizer and hook state (written by either
-        package); returns the step."""
+        """Restore params, optimizer, hook (and model) state (written by
+        either package); returns the step."""
         target = {"params": self.params, "opt_state": self.opt_state}
+        if self.stateful:
+            target["model_state"] = self.model_state
         tree, step = restore_bundle(ckpt_dir, step, target, self.model_name)
         self.load_params(tree["params"])
         self.load_opt_state(tree["opt_state"])
         self.manager.load_state_dict(tree["hooks"])
+        if self.stateful:
+            self.load_model_state(tree["model_state"])
         return step
 
     # -- epochs ------------------------------------------------------------
@@ -444,8 +508,8 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                 warm = [self.train_data] + (
                     [self.val_data] if split == "test" else [])
                 for d in warm:
-                    for _ in self._loader(d):
-                        pass
+                    for batch in self._loader(d):
+                        self._advance(batch)
             data = self.val_data if split == "val" else self.test_data
             t0 = time.perf_counter()
             rrs, masks = [], []

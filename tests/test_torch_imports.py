@@ -41,7 +41,11 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.kernels.segment_reduce.ops",
             "repro_torch.kernels.segment_reduce.ref",
             "repro_torch.core.discretize", "repro_torch.nn.graph_conv",
-            "repro_torch.models.tg.snapshot"} <= set(names)
+            "repro_torch.models.tg.snapshot", "repro_torch.core.sampler",
+            "repro_torch.core.tg_hooks", "repro_torch.nn.recurrent",
+            "repro_torch.models.tg.tgn",
+            "repro_torch.kernels.temporal_attention.ops",
+            "repro_torch.kernels.temporal_attention.ref"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -68,7 +72,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     from repro_torch.core import DeviceRecencySampler, PrefetchLoader, snapshot_tensor
     from repro_torch.data import generate
-    from repro_torch.tg import DataSpec, Experiment, ModelSpec
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, SamplerSpec
     from repro_torch.train.loop import CTDGLinkPipeline, DTDGLinkPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -83,6 +87,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
                          model_kwargs={"num_layers": 1})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PrefetchLoader([])
+    # TGN and the host sampler (the quickstart's default) run on the card too.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CTDGLinkPipeline("tgn", generate("tiny"), sampler_spec=SamplerSpec(k=10))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(data=DataSpec("tiny"), model=ModelSpec("tgn"),
+                   sampler=SamplerSpec(kind="recency", k=10)).compile()
     snapshots = Experiment(data=DataSpec("tiny", discretization="h"),
                            model=ModelSpec("gclstm", {"d_embed": 64}))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -86,7 +86,7 @@ def test_experiment_compiles_the_link_quadrant_on_cpu():
     assert 0.0 < mrr <= 1.0
     assert Experiment.from_json(exp.to_json()) == exp
     with pytest.raises(NotImplementedError):
-        Experiment(model=ModelSpec("tgn")).compile(device="cpu")
+        Experiment(model=ModelSpec("graphmixer")).compile(device="cpu")
     # With snapshots the quadrant is DTDG: an event-stream model is refused
     # (tests/test_torch_dtdg_pipeline.py compiles the snapshot models).
     with pytest.raises(ValueError, match="not a snapshot"):
