@@ -75,6 +75,29 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    ``train_epoch()`` with its launch counts, a checkpoint round trip with
    the model state.
 
+11. ``lm_kernels`` — the LM serving slice's kernels against their plain
+   versions on the card at its shapes (B = 4, S = 4,096, bfloat16): K5
+   (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
+   window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
+   chunk scan with groups and the final state) for hymba (H = 50, P = 64,
+   N = 16) and mamba2-780m (H = 48, N = 128); a second launch bitwise; times
+   of each kernel, its plain version and, for K5, SDPA, by CUDA events and
+   by ``torch.profiler``, each beside its bound; degenerate inputs (Sq !=
+   Skv, S = 1, S not a multiple of the tile or chunk, window >= S,
+   non-causal, float32, D = 8 and 120, zero-dt rows, groups).
+12. ``lm``     — hymba-1.5b at full width and depth (bf16, random weights
+   from a seeded generator on the card): the prefill of 4 x 4,096 tokens
+   through K5 and K6 (32 launches each, every call held against the plain
+   version on its own inputs), the same prefill with ``mode="ref"`` (last
+   logits and every cache leaf compared), 32 teacher-forced decode steps
+   from both caches (logits compared; greedy tokens equal wherever the top-2
+   margin exceeds twice the difference), prefill tokens/s and decode ms per
+   step; the float32 variant at 4 layers (logits within LM_F32_TOL);
+   ``launch.serve.main`` at ``--batch 4 --prompt-len 4096 --new-tokens 32
+   --temperature 0``; one kernel-path prefill at B = 1, S = 32,768; then
+   qwen3-0.6b (K5, 28 launches) and mamba2-780m (K6, 48 launches) through
+   the same prefill and decode comparisons.
+
 ``--profile`` adds ``profile`` (host-clock time per batch of the warm pass,
 and per scored val batch of the hooks, the model step and the metric, each
 closed by a device synchronise), ``trace`` (``torch.profiler`` over scored
@@ -90,10 +113,11 @@ val pairs), ``dtdg_spread`` (loss and val MRR of free-running K4 and plain
 epochs), ``dtdg_parity`` (the step parity over more steps), and for the
 classic path ``host_profile`` (the per-batch split of the host-sampler
 quickstart), ``host_trace`` and ``host_train_trace`` (its profiler windows)
-and ``tgn_device_train_trace`` / ``tgn_host_train_trace`` (TGN's train
-steps under the profiler on each sampler). Then the
+``tgn_device_train_trace`` / ``tgn_host_train_trace`` (TGN's train
+steps under the profiler on each sampler), and in ``lm`` a profiler window
+over hymba's decode steps (``decode_trace``). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
-K2, K3 and K4 with their launches on the main paths; K1w, off the path,
+K2, K3, K4, K5 and K6 with their launches on the main paths; K1w, off the path,
 beside them), the card's name and power limit as nvidia-smi reports them,
 and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
@@ -164,6 +188,31 @@ DTDG_MRR_TOL = 5e-3
 # cores and HBM3 bandwidth; they assume the 700 W power limit.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# ... and dense bfloat16 on the tensor cores (the LM kernels' input type).
+PEAK_BF16_FLOPS = 989e12
+
+# LM serving slice (K5, K6): the prefill batch and length of the main path,
+# the decode steps after it. K6's final state (float32, chunked sums of
+# thousands of steps) is held by its largest error over its largest entry,
+# SSD_TOL: the reference's bound for a chunked scan against the recurrence
+# (tests/kernels/families.py::_SSD_TOL). The random-init models are chaotic
+# in depth: a 1e-7 change of hymba's parameters moves its float32 logits by
+# O(1) within 16 layers (CPU, full width), so a bfloat16 model, kernel path
+# against plain path, is held layer by layer on the same input: the layer's
+# output and every cache leaf to LM_LAYER_TOL of its largest entry (the
+# plain path runs the reference's bfloat16 einsums and K6 float32
+# arithmetic, so each layer parts by bfloat16 rounding: up to 1.1e-2
+# measured on the CPU with the plain versions standing in for the kernels,
+# full width, six layers; 1.28e-2 on an H100, NVIDIA H100 80GB HBM3, 700 W).
+# The float32 variant, four layers deep, is held whole: its last logits to
+# LM_F32_TOL (2.8e-4 measured on the H100), every cache leaf to
+# LM_F32_CACHE_TOL (9.2e-4 measured there: the k/v of layers 2-4 carry the
+# parting of the layers below).
+LM_B, LM_S, LM_DECODE_STEPS = 4, 4096, 32
+SSD_TOL = 1e-3
+LM_LAYER_TOL = 3e-2
+LM_F32_TOL = 1e-3
+LM_F32_CACHE_TOL = 3e-3
 
 N_NODES, K, H, D = 9000, 10, 2, 50
 D_TIME, D_EDGE, N_EDGES = 100, 172, 157_474
@@ -178,6 +227,10 @@ SEG_SOURCE = "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu"
 TPU_K4 = "src/repro/kernels/segment_reduce/kernel.py:47"
 TA_SOURCE = "src/repro_torch/kernels/temporal_attention/csrc/temporal_attention.cu"
 TPU_K3 = "src/repro/kernels/temporal_attention/kernel.py:100"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+TPU_K5 = "src/repro/kernels/flash_attention/kernel.py:77"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
+TPU_K6 = "src/repro/kernels/ssd_chunk/kernel.py:70"
 DEVICE = "cuda"
 
 
@@ -293,8 +346,8 @@ def _reach(torch, ops, kw):
         eids=int(torch.unique(rows[..., 2][edge]).numel()))
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+def _bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
@@ -880,10 +933,11 @@ def dtdg_experiment(model: str = "gclstm"):
                       train=TrainSpec(eval_negatives=20))
 
 
-def device_us_per_call(torch, fn, n: int = 50) -> float:
+def device_us_per_call(torch, fn, n: int = 50):
     """Device time (µs) per call of ``fn`` from ``torch.profiler``: the sum
     of the device kernels ``n`` calls launch, over ``n`` (after a warm-up
-    call)."""
+    call); None when the profiler recorded no device kernel (not
+    measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -893,8 +947,9 @@ def device_us_per_call(torch, fn, n: int = 50) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / n
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / n if spans else None
 
 
 def segment_bound(n_kept, E, D, G):
@@ -1957,6 +2012,599 @@ def device_window(prof, wall_us):
             "device_ms_by_name": {k: v / 1e3 for k, v in top}}
 
 
+# ---------------------------------------------------------------------------
+# The LM serving slice: K5 (flash attention) and K6 (the SSD chunk scan)
+# ---------------------------------------------------------------------------
+def flash_visible_pairs(Sq, Skv, causal, window):
+    """Visible (query, key) pairs of one (batch, head) under K5's mask."""
+    off = Skv - Sq
+    total = 0
+    for i in range(Sq):
+        pos = i + off
+        hi = min(Skv - 1, pos) if causal else Skv - 1
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound(B, H, Hk, Sq, Skv, D, causal, window, dtype_bytes):
+    """Least time (ms) for one K5 call: q, k, v read once and o written once;
+    4 D operations per visible (query, key) pair and head (the score and its
+    share of the weighted sum), over the peak of the inputs' type (bf16 on
+    the tensor cores, float32 on the CUDA cores). Returns (bound_ms,
+    bound_by, bytes, flops)."""
+    nbytes = dtype_bytes * D * (2 * B * H * Sq + 2 * B * Hk * Skv)
+    flops = 4 * D * B * H * flash_visible_pairs(Sq, Skv, causal, window)
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    return _bound(nbytes, flops, peak)
+
+
+def ssd_bound(B, S, H, G, P, N, dtype_bytes):
+    """Least time (ms) for one K6 call: x, B, C, dt and a read once, y and
+    the final state written once; the recurrence's 4 P N operations per
+    step and head (the state update and the output), over the peak of the
+    inputs' type. Returns (bound_ms, bound_by, bytes, flops)."""
+    nbytes = (dtype_bytes * (2 * B * S * H * P + 2 * B * S * G * N)
+              + 4 * (B * S * H + H + B * H * P * N))
+    flops = 4 * B * S * H * P * N
+    peak = PEAK_BF16_FLOPS if dtype_bytes == 2 else PEAK_F32_FLOPS
+    return _bound(nbytes, flops, peak)
+
+
+def _sdpa(torch, q, k, v, causal, window):
+    """``scaled_dot_product_attention`` on (B, H, S, D) views: ``is_causal``
+    without a window, an explicit boolean mask with one; GQA by
+    ``enable_gqa`` where the installed torch has it, else repeated kv."""
+    import torch.nn.functional as F
+
+    G = q.shape[1] // k.shape[1]
+    kw = {}
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        kw["enable_gqa"] = True
+    elif G > 1:
+        k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    if not window:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, **kw)
+    Sq, Skv = q.shape[2], k.shape[2]
+    i = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    t = torch.arange(Skv, device=q.device)[None, :]
+    mask = (t > i - window) & ((t <= i) if causal else True)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, **kw)
+
+
+def flash_inputs(torch, gen, B, H, Hk, Sq, Skv, D, dtype):
+    """q (B, Sq, H, D), k and v (B, Skv, Hk, D) ~ N(0, 1) on the card: the
+    model's layout (the projected rows after RoPE are of that scale)."""
+    return [torch.randn(s, generator=gen).to(DEVICE, dtype)
+            for s in ((B, Sq, H, D), (B, Skv, Hk, D), (B, Skv, Hk, D))]
+
+
+def ssd_inputs(torch, gen, B, S, H, G, P, N, dtype):
+    """x, Bm, Cm as views of one (B, S, H P + 2 G N) tensor, as the model
+    splits its conv output; dt = softplus(N(0, 1)) and a = -exp(N(1, 0.3))
+    (the model's a_log starts at 1) in float32."""
+    import torch.nn.functional as F
+
+    xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=gen) * 0.5).to(DEVICE, dtype)
+    x, bm, cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    dt = F.softplus(torch.randn((B, S, H), generator=gen)).to(DEVICE)
+    a = -torch.exp(1.0 + 0.3 * torch.randn((H,), generator=gen)).to(DEVICE)
+    return (x.reshape(B, S, H, P), dt, a, bm.reshape(B, S, G, N),
+            cm.reshape(B, S, G, N))
+
+
+def _flash_plain(q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def compare_rel(torch, got, want, what: str, tol: float):
+    """Hold ``got`` to ``want`` by the largest error over the largest
+    reference entry (float32); returns (max abs err, relative)."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    rel = err / scale if scale > 0 else err
+    check(rel <= tol, f"{what}: max abs err {err:.3e} is {rel:.3e} of the "
+                      f"largest entry (limit {tol})")
+    return err, rel
+
+
+# K5 / K6 main shapes of the slice: (label, B, S, H, Hk, D, causal, window)
+# and (label, B, S, H, G, P, N), bfloat16.
+K5_SHAPES = (("hymba", LM_B, LM_S, 25, 5, 64, True, 1024),
+             ("qwen3", LM_B, LM_S, 16, 8, 128, True, 0))
+K6_SHAPES = (("hymba", LM_B, LM_S, 50, 1, 64, 16),
+             ("mamba2", LM_B, LM_S, 48, 1, 64, 128))
+
+
+def lm_kernels_phase(torch):
+    """K5 and K6 against their plain versions on the card at the slice's
+    shapes (B = 4, S = 4,096, bfloat16: K5 for hymba, 25 over 5 heads, D 64,
+    window 1024, and qwen3, 16 over 8, D 128, causal; K6 for hymba, H 50, P
+    64, N 16, and mamba2, H 48, N 128, one group), a second launch held
+    bitwise to the first, times by CUDA events (kernel, plain version, and
+    SDPA for K5) and device time per call by ``torch.profiler``, each beside
+    its bound; then degenerate inputs: Sq != Skv, S = 1, S not a multiple of
+    the tile or the chunk, a window >= S, non-causal, float32, D = 8 and
+    120, K6 with zero-dt rows, two groups, small P and N."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel, ssd_chunk_ref
+
+    gen = torch.Generator().manual_seed(15)
+    results, cases = {}, []
+    with torch.no_grad():
+        for label, B, S, H, Hk, D, causal, window in K5_SHAPES:
+            q, k, v = flash_inputs(torch, gen, B, H, Hk, S, S, D, torch.bfloat16)
+            got = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                         layout="bshd")
+            want = _flash_plain(q, k, v, causal, window)
+            err = compare(torch, got, want, f"K5 {label}", BF16_TOL)
+            again = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                           layout="bshd")
+            check(bool(torch.equal(again, got)), f"K5 {label}: a second launch "
+                                                 f"gave other bits")
+            del want, again
+            sdpa = _sdpa(torch, q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal, window)
+            lib_diff = float((sdpa().transpose(1, 2).float() - got.float()).abs().max())
+            bound, by, nbytes, flops = flash_bound(B, H, Hk, S, S, D, causal, window, 2)
+            kern = lambda: flash_attention_kernel(q, k, v, causal=causal,  # noqa: E731
+                                                  window=window, layout="bshd")
+            plain = lambda: _flash_plain(q, k, v, causal, window)  # noqa: E731
+            results[f"K5_{label}"] = dict(
+                B=B, S=S, H=H, Hk=Hk, D=D, causal=causal, window=window,
+                dtype="bfloat16", max_abs_err=err, rerun_bitwise_equal=True,
+                ms=time_ms(torch, kern, 5, 3), plain_ms=time_ms(torch, plain, 1, 3),
+                library_ms=time_ms(torch, sdpa, 5, 3),
+                device_us=device_us_per_call(torch, kern, 5),
+                plain_device_us=device_us_per_call(torch, plain, 2),
+                library_device_us=device_us_per_call(torch, sdpa, 5),
+                library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by,
+                bytes=nbytes, flops=flops)
+            del q, k, v, got
+            torch.cuda.empty_cache()
+
+        for label, B, S, H, G, P, N in K6_SHAPES:
+            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, torch.bfloat16)
+            y, st = ssd_chunk_kernel(x, dt, a, bm, cm)
+            wy, wst = ssd_chunk_ref(x, dt, a, bm, cm)
+            err = compare(torch, y, wy, f"K6 {label} y", BF16_TOL)
+            serr = compare_rel(torch, st, wst, f"K6 {label} state", SSD_TOL)
+            y2, st2 = ssd_chunk_kernel(x, dt, a, bm, cm)
+            check(bool(torch.equal(y2, y)) and bool(torch.equal(st2, st)),
+                  f"K6 {label}: a second launch gave other bits")
+            bound, by, nbytes, flops = ssd_bound(B, S, H, G, P, N, 2)
+            kern = lambda: ssd_chunk_kernel(x, dt, a, bm, cm)  # noqa: E731
+            plain = lambda: ssd_chunk_ref(x, dt, a, bm, cm)  # noqa: E731
+            results[f"K6_{label}"] = dict(
+                B=B, S=S, H=H, G=G, P=P, N=N, dtype="bfloat16", max_abs_err=err,
+                state_max_abs_err=serr[0], state_rel_err=serr[1],
+                rerun_bitwise_equal=True,
+                ms=time_ms(torch, kern, 5, 3), plain_ms=time_ms(torch, plain, 1, 3),
+                library_ms=None, device_us=device_us_per_call(torch, kern, 5),
+                plain_device_us=device_us_per_call(torch, plain, 2),
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+            del x, dt, a, bm, cm, y, st, wy, wst, y2, st2
+            torch.cuda.empty_cache()
+
+        def k5_case(name, B, H, Hk, Sq, Skv, D, causal, window, dtype, tol):
+            q, k, v = flash_inputs(torch, gen, B, H, Hk, Sq, Skv, D, dtype)
+            got = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                         layout="bshd")
+            err = compare(torch, got, _flash_plain(q, k, v, causal, window),
+                          f"K5 {name}", tol)
+            bhsd = flash_attention_kernel(q.transpose(1, 2).contiguous(),
+                                          k.transpose(1, 2).contiguous(),
+                                          v.transpose(1, 2).contiguous(),
+                                          causal=causal, window=window)
+            check(bool(torch.equal(bhsd.transpose(1, 2), got)),
+                  f"K5 {name}: the two layouts gave other bits")
+            cases.append({"kernel": "K5", "case": name, "Sq": Sq, "Skv": Skv,
+                          "D": D, "causal": causal, "window": window,
+                          "dtype": str(dtype), "max_abs_err": err})
+
+        bf, f32 = torch.bfloat16, torch.float32
+        k5_case("chunked_decode", 1, 2, 1, 32, 96, 32, True, 0, f32, ATOL)
+        k5_case("sq100_skv4096_window", 2, 25, 5, 100, 4096, 64, True, 1024, bf, BF16_TOL)
+        k5_case("s1", 2, 16, 8, 1, 1, 128, True, 0, bf, BF16_TOL)
+        k5_case("s1000_unaligned", 2, 25, 5, 1000, 1000, 64, True, 1024, bf, BF16_TOL)
+        k5_case("window_ge_s", 2, 25, 5, 1000, 1000, 64, True, 2048, bf, BF16_TOL)
+        k5_case("window_no_causal", 1, 4, 2, 300, 300, 64, False, 64, bf, BF16_TOL)
+        k5_case("bidirectional", 2, 4, 2, 200, 200, 32, False, 0, f32, ATOL)
+        k5_case("f32_hymba", 1, 25, 5, 2048, 2048, 64, True, 1024, f32, ATOL)
+        k5_case("f32_qwen3", 1, 16, 8, 1024, 1024, 128, True, 0, f32, ATOL)
+        k5_case("d8", 1, 4, 4, 130, 130, 8, True, 0, f32, ATOL)
+        k5_case("d120", 1, 6, 2, 130, 130, 120, True, 40, f32, ATOL)
+
+        def k6_case(name, B, S, H, G, P, N, dtype, tol, zero_tail=0):
+            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, dtype)
+            if zero_tail:
+                dt[:, S - zero_tail:] = 0.0
+            y, st = ssd_chunk_kernel(x, dt, a, bm, cm)
+            wy, wst = ssd_chunk_ref(x, dt, a, bm, cm)
+            err = compare(torch, y, wy, f"K6 {name} y", tol)
+            serr = compare_rel(torch, st, wst, f"K6 {name} state", SSD_TOL)
+            if zero_tail:  # the state after step S - 1 - zero_tail
+                _, st_cut = ssd_chunk_kernel(*(t[:, :S - zero_tail]
+                                               for t in (x, dt)), a,
+                                             bm[:, :S - zero_tail], cm[:, :S - zero_tail])
+                compare_rel(torch, st, st_cut, f"K6 {name} zero-dt tail", SSD_TOL)
+            cases.append({"kernel": "K6", "case": name, "S": S, "H": H, "G": G,
+                          "P": P, "N": N, "dtype": str(dtype), "max_abs_err": err,
+                          "state_rel_err": serr[1]})
+
+        k6_case("s1", 2, 1, 50, 1, 64, 16, bf, BF16_TOL)
+        k6_case("s33_unaligned", 2, 33, 48, 1, 64, 128, bf, BF16_TOL)
+        k6_case("zero_dt_tail", 2, 200, 50, 1, 64, 16, bf, BF16_TOL, zero_tail=37)
+        k6_case("f32_hymba", 2, 1000, 50, 1, 64, 16, f32, ATOL)
+        k6_case("f32_mamba2", 1, 1000, 48, 1, 64, 128, f32, ATOL)
+        k6_case("two_groups", 2, 300, 8, 2, 32, 64, f32, ATOL)
+        k6_case("p16_n32", 1, 77, 3, 3, 16, 32, f32, ATOL)
+    return results, cases
+
+
+def _capture(torch, store):
+    """Wrap the model's K5 and K6 entry points (``fa_ops.flash_attention``,
+    ``ssd_ops.ssd_chunk_scan``) so that every call keeps its inputs and
+    output in ``store``; returns the undo function. The wrappers call the
+    kernels as before (the launch counts are the kernels' own)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    fa, ssd = fa_ops.flash_attention, ssd_ops.ssd_chunk_scan
+
+    def fa_tap(q, k, v, **kw):
+        out = fa(q, k, v, **kw)
+        store.append(("K5", (q, k, v), kw, out))
+        return out
+
+    def ssd_tap(*args, **kw):
+        out = ssd(*args, **kw)
+        store.append(("K6", args, kw, out))
+        return out
+
+    fa_ops.flash_attention, ssd_ops.ssd_chunk_scan = fa_tap, ssd_tap
+
+    def undo():
+        fa_ops.flash_attention, ssd_ops.ssd_chunk_scan = fa, ssd
+    return undo
+
+
+def _lm_launches():
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.ssd_chunk import LAUNCHES as SSD
+
+    return {"flash_attention": FA["flash_attention"], "ssd_chunk": SSD["ssd_chunk"]}
+
+
+def _lm_reset():
+    from repro_torch.kernels.flash_attention import reset_launches as fa_reset
+    from repro_torch.kernels.ssd_chunk import reset_launches as ssd_reset
+
+    fa_reset()
+    ssd_reset()
+
+
+def _layer_checks(torch, store, f32=False):
+    """Each captured K5 / K6 call's output against the plain version on the
+    same inputs (BF16_TOL, or ATOL for float32; K6's state to SSD_TOL of its
+    largest entry); returns the largest errors."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+
+    out = {"K5": [], "K6": []}
+    tol = ATOL if f32 else BF16_TOL
+    for layer, (kind, args, kw, got) in enumerate(store):
+        if kind == "K5":
+            want = _flash_plain(*args, kw["causal"], kw["window"])
+            out["K5"].append(compare(torch, got, want, f"K5 call {layer}", tol))
+        else:
+            wy, wst = ssd_chunk_ref(*args)
+            out["K6"].append(compare_rel(torch, got[0], wy, f"K6 call {layer} y",
+                                         tol)[0] if f32 else
+                             compare(torch, got[0], wy, f"K6 call {layer} y", tol))
+            compare_rel(torch, got[1], wst, f"K6 call {layer} state", SSD_TOL)
+    return {k: max(v) if v else None for k, v in out.items()}
+
+
+def _cache_diff(torch, a, b, prefix=""):
+    """[largest |a - b|, that over the largest |b|] per cache leaf of the
+    kernel path's cache ``a`` against the plain path's ``b``; the integer
+    leaves (``idx``, ``slot_pos``) must be equal."""
+    out = {}
+    for k in a:
+        if isinstance(a[k], dict):
+            out.update(_cache_diff(torch, a[k], b[k], f"{prefix}/{k}"))
+        elif a[k].dtype in (torch.int32, torch.int64):
+            check(bool(torch.equal(a[k], b[k])), f"cache {prefix}/{k}: int leaves differ")
+            out[f"{prefix}/{k}"] = [0.0, 0.0]
+        else:
+            err = float((a[k].float() - b[k].float()).abs().max())
+            scale = float(b[k].float().abs().max())
+            out[f"{prefix}/{k}"] = [err, err / scale if scale > 0 else err]
+    return out
+
+
+def layer_parity(torch, M, params, cfg, prompt, max_len, tol):
+    """Each decoder layer, kernel path (``mode="auto"``) against plain path
+    (``mode="ref"``) on the same input, the kernel path's own residual
+    stream: the layer's output and every cache leaf it fills, each held by
+    its largest error over its largest entry to ``tol``. Returns the
+    largest relative error of the outputs and of the cache leaves."""
+    tokens = prompt["tokens"]
+    B, S = tokens.shape
+    x = M._embed_tokens(params, cfg, tokens)
+    pos = torch.arange(S, device=tokens.device)
+    ck, cr = M.init_cache(cfg, B, max_len, DEVICE), M.init_cache(cfg, B, max_len, DEVICE)
+    worst_x, worst_c = 0.0, 0.0
+    for i in range(cfg.num_layers):
+        lp = M._layer(params["blocks"], i)
+        xk = M.prefill_layer(lp, cfg, x, M._layer(ck, i), pos, mode="auto")
+        xr = M.prefill_layer(lp, cfg, x, M._layer(cr, i), pos, mode="ref")
+        worst_x = max(worst_x, compare_rel(torch, xk, xr, f"{cfg.name} layer {i}", tol)[1])
+        for name, (err, rel) in _cache_diff(torch, M._layer(ck, i), M._layer(cr, i)).items():
+            check(rel <= tol, f"{cfg.name} layer {i} cache {name}: error {err:.3e}, "
+                              f"{rel:.3e} of the largest entry (limit {tol})")
+            worst_c = max(worst_c, rel)
+        x = xk
+    return worst_x, worst_c
+
+
+def lm_model_run(torch, arch, *, tokens, new_tokens, tol, f32_layers=0,
+                 profile=False):
+    """One config on the card. The kernel-path prefill (the main path: K5
+    and K6 counted, each call captured and held against the plain version
+    on its own inputs), then the same prefill timed without capture. The
+    random-init models are chaotic in depth (a 1e-7 change of the
+    parameters moves hymba's logits by O(1) within 16 layers), so the
+    prefill is held layer by layer (``layer_parity``, ``tol``) and the
+    whole-depth plain prefill (``mode="ref"``) is compared and reported;
+    ``f32_layers`` > 0 (the float32 variant at that depth, too shallow to
+    part) holds the whole prefill's logits to ``tol`` and its caches to
+    LM_F32_CACHE_TOL. Then
+    ``new_tokens`` teacher-forced decode steps from both caches (the same
+    plain code on both; their logits part as the caches do, amplified by
+    the depth): logits compared and reported, greedy tokens equal wherever
+    the plain path's top-2 margin exceeds twice that step's largest
+    difference."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as M
+
+    cfg = get_arch(arch)
+    if f32_layers:
+        cfg = dataclasses.replace(cfg, num_layers=f32_layers,
+                                  param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = tokens.shape[0], tokens.shape[1] - new_tokens
+    prompt = {"tokens": tokens[:, :S]}
+    max_len = S + new_tokens + 1
+    res = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
+           "B": B, "S": S, "params": sum(t.numel() for t in _flat(params).values()),
+           "init_seconds": init_s}
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        store = []
+        undo = _capture(torch, store)
+        try:
+            torch.cuda.synchronize()
+            _lm_reset()
+            lk, ck = M.prefill(params, cfg, prompt, max_len=max_len, mode="auto")
+            torch.cuda.synchronize()
+            res["launches"] = _lm_launches()
+        finally:
+            undo()
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["call_max_abs_err"] = _layer_checks(torch, store, f32=bool(f32_layers))
+        del store
+        torch.cuda.empty_cache()
+        want = {"hybrid": (cfg.num_layers, cfg.num_layers), "dense": (cfg.num_layers, 0),
+                "ssm": (0, cfg.num_layers)}[cfg.family]
+        check((res["launches"]["flash_attention"], res["launches"]["ssd_chunk"]) == want,
+              f"{cfg.name} prefill: launches {res['launches']}, expected K5/K6 {want}")
+        check(bool(torch.isfinite(lk.float()).all()), f"{cfg.name}: non-finite logits")
+
+        def timed(mode):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = M.prefill(params, cfg, prompt, max_len=max_len, mode=mode)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        _, res["prefill_seconds"] = timed("auto")
+        res["prefill_tokens_per_s"] = B * S / res["prefill_seconds"]
+        (lr, cr), res["plain_prefill_seconds"] = timed("ref")
+        if not f32_layers:
+            res["layer_rel_err"], res["layer_cache_rel_err"] = layer_parity(
+                torch, M, params, cfg, prompt, max_len, tol)
+        err = float((lk.float() - lr.float()).abs().max())
+        res["prefill_logits_max_abs_err"] = err
+        res["logits_scale"] = float(lr.float().abs().max())
+        res["prefill_logits_rel_err"] = err / res["logits_scale"]
+        res["cache_err"] = diffs = _cache_diff(torch, ck, cr)
+        if f32_layers:
+            compare_rel(torch, lk, lr, f"{cfg.name} prefill logits", tol)
+            worst = max(diffs, key=lambda n: diffs[n][1])
+            check(diffs[worst][1] <= LM_F32_CACHE_TOL,
+                  f"{cfg.name} prefill cache {worst}: error {diffs[worst]} "
+                  f"(limit {LM_F32_CACHE_TOL})")
+
+        step_err, held, equal, step_ms = [], 0, 0, []
+        for i in range(new_tokens):
+            tok = tokens[:, S + i]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lk, ck = M.decode_step(params, cfg, ck, tok)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            lr, cr = M.decode_step(params, cfg, cr, tok)
+            check(bool(torch.isfinite(lk.float()).all()),
+                  f"{cfg.name} decode step {i}: non-finite logits")
+            diff = (lk.float() - lr.float()).abs().amax(-1)
+            step_err.append(float(diff.max()))
+            top2 = torch.topk(lr.float(), 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * diff
+            same = torch.argmax(lk, -1) == torch.argmax(lr, -1)
+            check(bool(same[sure].all()), f"{cfg.name} decode step {i}: greedy "
+                                          f"tokens differ beyond the margin")
+            held += int(sure.sum())
+            equal += int(same.sum())
+        res.update(decode_steps=new_tokens, decode_logits_max_abs_err=max(step_err),
+                   greedy_rows_beyond_margin=held, greedy_rows_equal=equal,
+                   greedy_rows=B * new_tokens,
+                   decode_ms_per_step=statistics.median(step_ms),
+                   decode_tokens_per_s=B * 1e3 / statistics.median(step_ms))
+        res["decode_cache_err"] = _cache_diff(torch, ck, cr)
+        if profile:
+            res["decode_trace"] = decode_trace(torch, M, params, cfg, ck, tokens[:, S])
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def chaos_control(torch, arch, B: int = 1, S: int = 1024):
+    """How far the random-init model's logits part under a tiny change, in
+    float32 at full depth: kernel path against plain path, and plain path
+    against the plain path from parameters scaled by 1 + 1e-7 (reported,
+    not held)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    with torch.no_grad():
+        params = M.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        tokens = torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEVICE)
+        lk, _ = M.prefill(params, cfg, {"tokens": tokens}, mode="auto")
+        lr, _ = M.prefill(params, cfg, {"tokens": tokens}, mode="ref")
+        params = tree_map(lambda t: t * (1 + 1e-7), params)
+        lp, _ = M.prefill(params, cfg, {"tokens": tokens}, mode="ref")
+        out = {"arch": cfg.name, "layers": cfg.num_layers, "B": B, "S": S,
+               "kernel_vs_plain": float((lk - lr).abs().max()),
+               "perturbed_vs_plain": float((lp - lr).abs().max()),
+               "logits_scale": float(lr.abs().max())}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_trace(torch, M, params, cfg, cache, tok, n: int = 10):
+    """``--profile``: ``torch.profiler`` over ``n`` decode steps (after two
+    untimed ones): device idle share and device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        M.decode_step(params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            M.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    return {"steps": n, **device_window(prof, wall_us)}
+
+
+def lm_phase(torch, profile=False):
+    """The LM serving slice at full width and depth on the card: hymba-1.5b
+    (bf16, B = 4 x S = 4,096, 32 teacher-forced decode steps; K5 and K6 32
+    times each per prefill), its float32 variant at 4 layers (logits within
+    LM_F32_TOL), ``launch.serve.main`` (4 x 4,096, 32 new tokens, greedy),
+    one kernel-path prefill at B = 1, S = 32,768, then qwen3-0.6b (K5 only)
+    and mamba2-780m (K6 only) through the same comparisons."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for arch in ("hymba-1.5b", "qwen3-0.6b", "mamba2-780m"):
+        V = get_arch(arch).vocab_size
+        tokens = torch.as_tensor(np.random.default_rng(5).integers(
+            0, V, (LM_B, LM_S + LM_DECODE_STEPS)), dtype=torch.int32, device=DEVICE)
+        out[arch] = lm_model_run(torch, arch, tokens=tokens,
+                                 new_tokens=LM_DECODE_STEPS, tol=LM_LAYER_TOL,
+                                 profile=profile and arch == "hymba-1.5b")
+        if arch != "hymba-1.5b":
+            continue
+        out["hymba_f32_4_layers"] = lm_model_run(
+            torch, arch, tokens=tokens[:, :LM_S + 4], new_tokens=4,
+            tol=LM_F32_TOL, f32_layers=4)
+
+        from repro_torch.launch.serve import main as serve_main
+
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        _lm_reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_main(["--arch", arch, "--batch", str(LM_B), "--prompt-len",
+                             str(LM_S), "--new-tokens", str(LM_DECODE_STEPS),
+                             "--temperature", "0"])
+        torch.cuda.synchronize()
+        out["serve_main"] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                             "launches": _lm_launches(),
+                             "stdout": buf.getvalue().splitlines()}
+        check(rc == 0 and out["serve_main"]["stdout"][0].startswith(
+            f"{arch}: ({LM_B}, {LM_DECODE_STEPS}) tokens"), "launch.serve.main failed")
+        check(out["serve_main"]["launches"] == {"flash_attention": 32, "ssd_chunk": 32},
+              f"launch.serve.main: launches {out['serve_main']['launches']}")
+        torch.cuda.empty_cache()
+        out["hymba_prefill_32k"] = long_prefill(torch, arch)
+        out["hymba_f32_chaos_control"] = chaos_control(torch, arch)
+    return out
+
+
+def long_prefill(torch, arch, S: int = 32_768):
+    """One kernel-path prefill at B = 1 and the repo's prefill_32k length."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import model as M
+
+    cfg = get_arch(arch)
+    with torch.no_grad():
+        params = M.init(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        tokens = torch.as_tensor(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (1, S)), dtype=torch.int32, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _lm_reset()
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(params, cfg, {"tokens": tokens}, mode="auto")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _lm_launches()
+        check(bool(torch.isfinite(logits.float()).all()), "32k prefill: non-finite logits")
+        check(launches == {"flash_attention": 32, "ssd_chunk": 32},
+              f"32k prefill: launches {launches}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return {"B": 1, "S": S, "seconds": sec, "tokens_per_s": S / sec,
+            "launches": launches, "peak_memory_gb": peak}
+
+
 def main() -> int:
     try:
         import torch
@@ -2036,6 +2684,19 @@ def main() -> int:
         tg = tgn_phase(torch, wiki)
         emit({"phase": "tgn", "tolerance": {"val_mrr": MRR_TOL, "memory": ATOL,
                                             "step_loss": STEP_LOSS_TOL}, **tg})
+        torch.cuda.empty_cache()
+
+        lmk, lmk_cases = lm_kernels_phase(torch)
+        emit({"phase": "lm_kernels", "tolerance": {"atol": ATOL, "rtol": RTOL,
+                                                   "bf16": BF16_TOL, "ssd_state": SSD_TOL},
+              "peaks": {"f32_flops": PEAK_F32_FLOPS, "bf16_flops": PEAK_BF16_FLOPS,
+                        "bytes_per_s": PEAK_BYTES},
+              "shapes": lmk, "degenerate": lmk_cases})
+        lm = lm_phase(torch, profile="--profile" in sys.argv[1:])
+        emit({"phase": "lm", "tolerance": {"bf16_layer": LM_LAYER_TOL,
+                                           "f32_model": LM_F32_TOL,
+                                           "f32_cache": LM_F32_CACHE_TOL,
+                                           "kernel_bf16": BF16_TOL}, **lm})
 
         if "--profile" in sys.argv[1:]:
             pipe, prof = profile_phase(torch)
@@ -2075,6 +2736,15 @@ def main() -> int:
                       if r["launches"][name]}
                for name in ("fused_temporal_layer", "fused_temporal_layer_bwd",
                             "temporal_attention")}
+    k5, k6 = lmk["K5_hymba"], lmk["K6_hymba"]
+    lm_runs = {"hymba_prefill": lm["hymba-1.5b"]["launches"],
+               "qwen3_prefill": lm["qwen3-0.6b"]["launches"],
+               "mamba2_prefill": lm["mamba2-780m"]["launches"],
+               "hymba_f32_prefill": lm["hymba_f32_4_layers"]["launches"],
+               "hymba_serve_main": lm["serve_main"]["launches"],
+               "hymba_prefill_32k": lm["hymba_prefill_32k"]["launches"]}
+    lm_paths = {name: {p: r[name] for p, r in lm_runs.items() if r[name]}
+                for name in ("flash_attention", "ssd_chunk")}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": "fused_temporal_layer", "route": "cuda",
@@ -2113,6 +2783,28 @@ def main() -> int:
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "shape": "E=256 D=64 G=9000",
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": FA_SOURCE, "replaces": TPU_K5,
+        "launches": lm["hymba-1.5b"]["launches"]["flash_attention"],
+        "launches_by_path": lm_paths["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for k, r in lmk.items() if k.startswith("K5")),
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"], "shape": "hymba B=4 S=4096 H=25/5 D=64 window=1024 bf16",
+        "qwen3": {k: lmk["K5_qwen3"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")},
+    }, {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": SSD_SOURCE, "replaces": TPU_K6,
+        "launches": lm["hymba-1.5b"]["launches"]["ssd_chunk"],
+        "launches_by_path": lm_paths["ssd_chunk"],
+        "max_abs_err": max(r["max_abs_err"] for k, r in lmk.items() if k.startswith("K6")),
+        "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
+        "library_ms": None, "shape": "hymba B=4 S=4096 H=50 P=64 N=16 G=1 bf16",
+        "mamba2": {k: lmk["K6_mamba2"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                     "bound_by")},
     }], "wrappers_off_main_path": [{
         "name": "fused_recency_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1W,

@@ -9,7 +9,9 @@ torch tensors; ``opt_state_from_jax`` does the same for an AdamW state
 same parameters and optimizer state; ``state_from_jax`` moves a model's
 state: a snapshot model's recurrent state (GCLSTM's ``(h, c)`` tuple,
 T-GCN's one array, the stateless GCN's ``()``) or TGN's ``{"memory",
-"last_update"}`` dict. Weights keep the reference's
+"last_update"}`` dict (and an LM cache: nested dicts with int32 ``idx``
+and ``slot_pos``); ``lm_params_from_jax`` moves the LM's parameters in
+the config's ``param_dtype``. Weights keep the reference's
 ``(d_in, d_out)`` layout, so every public function computes ``x @ w + b``
 on both sides and nothing is transposed out of sight.
 """
@@ -61,3 +63,15 @@ def state_from_jax(state, device="cpu"):
     a = np.asarray(state)
     dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
+def lm_params_from_jax(tree, cfg, device="cpu"):
+    """The reference's LM parameters (``M.init``'s pytree, numpy leaves via
+    ``jax.device_get``) -> the same nesting of tensors in
+    ``cfg.param_dtype``. bfloat16 goes through float32, which is exact both
+    ways (``torch.as_tensor`` cannot read ``ml_dtypes.bfloat16`` arrays)."""
+    dtype = getattr(torch, cfg.param_dtype)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, cfg, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree, dtype=np.float32),
+                           device=device).to(dtype)

@@ -45,7 +45,19 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.core.tg_hooks", "repro_torch.nn.recurrent",
             "repro_torch.models.tg.tgn",
             "repro_torch.kernels.temporal_attention.ops",
-            "repro_torch.kernels.temporal_attention.ref"} <= set(names)
+            "repro_torch.kernels.temporal_attention.ref",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.archs", "repro_torch.configs.hymba_1_5b",
+            "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.mamba2_780m",
+            "repro_torch.models.lm.params", "repro_torch.models.lm.layers",
+            "repro_torch.models.lm.model",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.kernels.ssd_chunk.kernel",
+            "repro_torch.kernels.ssd_chunk.ops",
+            "repro_torch.kernels.ssd_chunk.ref",
+            "repro_torch.serve.decode", "repro_torch.launch.serve"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -103,6 +115,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         snapshot_tensor(generate("tiny"), "h")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate("tiny").to_snapshots("h")
+    # LM serving (the launch entry point defaults to --device cuda).
+    from repro_torch.launch.serve import main as serve_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--arch", "hymba-1.5b", "--reduced"])
     DeviceRecencySampler(10, 4, device="cpu")  # the explicit CPU path runs
 
 
