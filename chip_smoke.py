@@ -39,8 +39,9 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    ids, and the largest daily one, E = 2,048, over G = 9,000 nodes at
    widths D = 1 and 64) and on degenerate inputs (every id equal, every id
    dropped, ids out of range, E = 1 and 0, D = 33, five segments, 5,000
-   ids, sorted ids), with times of the kernel, its plain version and
-   ``index_add_``, and the bound.
+   ids, sorted ids, a 2,000-edge padding run, one segment), every case's
+   sums bit-equal to an edge-order float32 loop on the host, with times of
+   the kernel, its plain version and ``index_add_``, and the bound.
 7. ``dtdg``    — the snapshot slice: ``tg.Experiment`` with
    ``DataSpec("wikipedia", discretization="h")`` and GCLSTM (``d_embed``
    64): the ``SnapshotTensor`` built on the card, bit-equal to the CPU's;
@@ -84,9 +85,17 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    of each kernel, its plain version and, for K5, SDPA, by CUDA events and
    by ``torch.profiler``, each beside its bound; degenerate inputs (Sq !=
    Skv, S = 1, S not a multiple of the tile or chunk, window >= S,
-   non-causal, float32, D = 8 and 120, zero-dt rows, groups).
-12. ``lm``     — hymba-1.5b at full width and depth (bf16, random weights
-   from a seeded generator on the card): the prefill of 4 x 4,096 tokens
+   non-causal, float32 on K5's CUDA-core kernel, bfloat16 on its
+   tensor-core kernel at D = 8, 48, 96 and 120, offsets and windows that
+   are not multiples of a tile, one query over 4,096 keys, zero-dt rows,
+   groups); ``profiler_clock`` before the phase.
+12. ``lm``     — first the decode attentions' products (``layers.
+   _attend_cache``, bf16 GEMMs with float32 output over views of the
+   cache) against the float32-copy form at hymba's and qwen3's decode
+   shapes, within DECODE_TOL, with the memory a call allocates held below
+   one float32 copy of a cache; then hymba-1.5b at full width and depth
+   (bf16, random weights from a seeded generator on the card): the prefill
+   of 4 x 4,096 tokens
    through K5 and K6 (32 launches each, every call held against the plain
    version on its own inputs), the same prefill with ``mode="ref"`` (last
    logits and every cache leaf compared), 32 teacher-forced decode steps
@@ -115,7 +124,10 @@ classic path ``host_profile`` (the per-batch split of the host-sampler
 quickstart), ``host_trace`` and ``host_train_trace`` (its profiler windows)
 ``tgn_device_train_trace`` / ``tgn_host_train_trace`` (TGN's train
 steps under the profiler on each sampler), and in ``lm`` a profiler window
-over hymba's decode steps (``decode_trace``). Then the
+over hymba's decode steps (``decode_trace``, with the device ms per step of
+copy kernels and the largest copies by shape). ``build`` and
+``lm_kernels`` report ``profiler_clock`` (what the profiler keeps of two
+known launches, early and late in the process). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
 K2, K3, K4, K5 and K6 with their launches on the main paths; K1w, off the path,
 beside them), the card's name and power limit as nvidia-smi reports them,
@@ -232,6 +244,7 @@ TPU_K5 = "src/repro/kernels/flash_attention/kernel.py:77"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
 TPU_K6 = "src/repro/kernels/ssd_chunk/kernel.py:70"
 DEVICE = "cuda"
+T_START = time.perf_counter()
 
 
 class SmokeError(RuntimeError):
@@ -933,23 +946,81 @@ def dtdg_experiment(model: str = "gclstm"):
                       train=TrainSpec(eval_negatives=20))
 
 
+# Idle seconds before and after the calls inside every profiled window.
+# Late in a full run the profiler loses device kernels (cause not found):
+# at ~160 s into the run it kept neither a known matmul nor an elementwise
+# launch with no margin (nor with 0.25 s), both with 2 s in one run and
+# neither in another (``profiler_clock``), while a young process keeps
+# them with none; with 2 s every K5/K6 reading of a full run came through
+# (PERF.md). K5/K6 also report their CUDA-event time, which needs no
+# profiler.
+PROFILE_MARGIN_S = 2.0
+
+
 def device_us_per_call(torch, fn, n: int = 50):
     """Device time (µs) per call of ``fn`` from ``torch.profiler``: the sum
     of the device kernels ``n`` calls launch, over ``n`` (after a warm-up
-    call); None when the profiler recorded no device kernel (not
-    measured)."""
+    call), the calls between idle margins of PROFILE_MARGIN_S; None when
+    the profiler recorded no device kernel (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     return sum(spans) / n if spans else None
+
+
+def profiler_clock(torch, margin_s: float = 0.0):
+    """What the profiler records of two known launches, a cuBLAS matmul and
+    an ATen elementwise kernel, with host and device activities: the device
+    kernels it kept and each one's start minus the host start of its launch
+    call. Run early in the process and again before ``lm_kernels``, there
+    with no margin and with ``margin_s`` idle seconds before and after the
+    launches: the evidence for PROFILE_MARGIN_S."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2048, 2048, device=DEVICE)
+    work = (lambda: torch.mm(x, x), lambda: x.add(1.0))
+    for fn in work:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
+        for fn in work:
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(margin_s)
+    ev = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id(): e.start_ns() for e in ev
+              if e.device_type().name == "CPU" and "aunch" in e.name()}
+    kern = [e for e in ev if e.device_type().name == "CUDA"]
+    return {"device_kernels": [e.name()[:60] for e in kern],
+            "launch_to_kernel_us": [
+                (e.start_ns() - launch[c]) / 1e3 for e in kern
+                for c in (e.correlation_id(), e.linked_correlation_id())
+                if c in launch],
+            "margin_s": margin_s, "process_seconds": time.perf_counter() - T_START}
+
+
+def edge_order_sum(x, ids, G):
+    """The segment sum as a plain loop on the host: each row added to its
+    segment's float32 sum in edge order from +0.0, ids outside [0, G)
+    dropped; the bits K4 must give."""
+    import numpy as np
+
+    x, ids = x.cpu().numpy(), ids.cpu().numpy()
+    out = np.zeros((G, x.shape[1]), np.float32)
+    for e in np.flatnonzero((ids >= 0) & (ids < G)):
+        out[ids[e]] += x[e]
+    return out
 
 
 def segment_bound(n_kept, E, D, G):
@@ -970,8 +1041,9 @@ def dtdg_kernels_phase(torch, data):
     these sizes measures the host's launch rate as much as the device; and
     the device time per call from ``torch.profiler`` (``*_device_us``, the
     sum of the device kernels one call launches). Also: a second launch
-    bit-equal to the first, and the kernel's sums against the CPU's
-    edge-order ``index_add_``."""
+    bit-equal to the first, and every case's sums bit-equal to the
+    edge-order float32 loop on the host (``edge_order_sum``; the CPU's
+    ``index_add_`` reported beside it)."""
     from repro_torch.core import snapshot_tensor
     from repro_torch.kernels.segment_reduce import segment_sum_kernel, segment_sum_ref
 
@@ -991,6 +1063,9 @@ def dtdg_kernels_phase(torch, data):
                           f"K4 {unit} E={E} D={D}")
             again = segment_sum_kernel(x, ids, G)
             cpu = segment_sum_ref(x.cpu(), ids.cpu(), G)
+            loop = edge_order_sum(x, ids, G)
+            check(bool((got.cpu().numpy().view("u4") == loop.view("u4")).all()),
+                  f"K4 {unit} E={E} D={D}: not the edge-order sum's bits")
             bound, by, nbytes, flops = segment_bound(E, E, D, G)
             kern = lambda: segment_sum_kernel(x, ids, G)  # noqa: E731
             plain = lambda: segment_sum_ref(x, ids, G)  # noqa: E731
@@ -998,6 +1073,7 @@ def dtdg_kernels_phase(torch, data):
             results[f"{unit}_d{D}"] = dict(
                 E=E, valid_edges=kept, D=D, G=G, max_abs_err=err,
                 rerun_bitwise_equal=bool(torch.equal(again, got)),
+                bitwise_equal_to_edge_order_loop=True,
                 bitwise_equal_to_cpu_index_add=bool(torch.equal(got.cpu(), cpu)),
                 ms=time_ms(torch, kern, 200), plain_ms=time_ms(torch, plain, 200),
                 library_ms=time_ms(torch, lib, 200),
@@ -1017,7 +1093,11 @@ def dtdg_kernels_phase(torch, data):
         kept = ids[(ids >= 0) & (ids < g)].long()
         hit[kept] = True
         check(bool((got[~hit] == 0).all()), f"K4 {name}: empty segments not zero")
-        cases.append({"case": name, "E": E, "D": D, "G": g, "max_abs_err": err})
+        check(bool((got.cpu().numpy().view("u4")
+                    == edge_order_sum(x, ids, g).view("u4")).all()),
+              f"K4 {name}: not the edge-order sum's bits")
+        cases.append({"case": name, "E": E, "D": D, "G": g, "max_abs_err": err,
+                      "bitwise_equal_to_edge_order_loop": True})
 
     def ids(lo, hi, E):
         return torch.randint(lo, hi, (E,), generator=gen)
@@ -1031,6 +1111,10 @@ def dtdg_kernels_phase(torch, data):
     case("d3_g5_dups", 300, 3, ids(0, 5, 300), g=5)
     case("e5000_chunks", 5000, 64, ids(-1, G, 5000))
     case("sorted", 2048, 64, torch.sort(ids(-1, G, 2048)).values)
+    case("padding_run_5000", 5000, 64,  # > 2,048 ids, > 128 listed in a tile
+         torch.cat([ids(0, G, 3000), torch.zeros(2000, dtype=torch.long)]))
+    case("d1_all_equal", 3000, 1, torch.full((3000,), G - 1))
+    case("g1", 300, 64, ids(-1, 2, 300), g=1)
     return results, cases
 
 
@@ -2132,9 +2216,12 @@ def lm_kernels_phase(torch):
     64, N 16, and mamba2, H 48, N 128, one group), a second launch held
     bitwise to the first, times by CUDA events (kernel, plain version, and
     SDPA for K5) and device time per call by ``torch.profiler``, each beside
-    its bound; then degenerate inputs: Sq != Skv, S = 1, S not a multiple of
-    the tile or the chunk, a window >= S, non-causal, float32, D = 8 and
-    120, K6 with zero-dt rows, two groups, small P and N."""
+    its bound (K5: its share of the bound and TFLOP/s); then degenerate
+    inputs: Sq != Skv, S = 1, S not a multiple of the tile or the chunk, a
+    window >= S, non-causal, float32 (the CUDA-core kernel), bfloat16 (the
+    tensor-core kernel) at D = 8, 48, 96 and 120, offsets and windows that
+    are not multiples of a tile, one query over 4,096 keys, K6 with zero-dt
+    rows, two groups, small P and N."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel, ssd_chunk_ref
 
@@ -2159,16 +2246,21 @@ def lm_kernels_phase(torch):
             kern = lambda: flash_attention_kernel(q, k, v, causal=causal,  # noqa: E731
                                                   window=window, layout="bshd")
             plain = lambda: _flash_plain(q, k, v, causal, window)  # noqa: E731
-            results[f"K5_{label}"] = dict(
+            r = results[f"K5_{label}"] = dict(
                 B=B, S=S, H=H, Hk=Hk, D=D, causal=causal, window=window,
                 dtype="bfloat16", max_abs_err=err, rerun_bitwise_equal=True,
-                ms=time_ms(torch, kern, 5, 3), plain_ms=time_ms(torch, plain, 1, 3),
-                library_ms=time_ms(torch, sdpa, 5, 3),
-                device_us=device_us_per_call(torch, kern, 5),
+                ms=time_ms(torch, kern, 10, 3), plain_ms=time_ms(torch, plain, 1, 3),
+                library_ms=time_ms(torch, sdpa, 10, 3),
+                device_us=device_us_per_call(torch, kern, 10),
                 plain_device_us=device_us_per_call(torch, plain, 2),
-                library_device_us=device_us_per_call(torch, sdpa, 5),
+                library_device_us=device_us_per_call(torch, sdpa, 10),
                 library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by,
                 bytes=nbytes, flops=flops)
+            r["bound_share"] = bound / r["ms"]
+            r["tflops"] = flops / r["ms"] / 1e9
+            # The CUDA-event time of back-to-back calls on the otherwise
+            # idle stream, beside the profiler's reading, under its own name.
+            r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
             del q, k, v, got
             torch.cuda.empty_cache()
 
@@ -2184,7 +2276,7 @@ def lm_kernels_phase(torch):
             bound, by, nbytes, flops = ssd_bound(B, S, H, G, P, N, 2)
             kern = lambda: ssd_chunk_kernel(x, dt, a, bm, cm)  # noqa: E731
             plain = lambda: ssd_chunk_ref(x, dt, a, bm, cm)  # noqa: E731
-            results[f"K6_{label}"] = dict(
+            r = results[f"K6_{label}"] = dict(
                 B=B, S=S, H=H, G=G, P=P, N=N, dtype="bfloat16", max_abs_err=err,
                 state_max_abs_err=serr[0], state_rel_err=serr[1],
                 rerun_bitwise_equal=True,
@@ -2192,6 +2284,7 @@ def lm_kernels_phase(torch):
                 library_ms=None, device_us=device_us_per_call(torch, kern, 5),
                 plain_device_us=device_us_per_call(torch, plain, 2),
                 bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+            r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
             del x, dt, a, bm, cm, y, st, wy, wst, y2, st2
             torch.cuda.empty_cache()
 
@@ -2223,6 +2316,20 @@ def lm_kernels_phase(torch):
         k5_case("f32_qwen3", 1, 16, 8, 1024, 1024, 128, True, 0, f32, ATOL)
         k5_case("d8", 1, 4, 4, 130, 130, 8, True, 0, f32, ATOL)
         k5_case("d120", 1, 6, 2, 130, 130, 120, True, 40, f32, ATOL)
+        # bfloat16 on the tensor cores: D not 64 or 128 (96 natively, phi3's;
+        # 48 natively in the D <= 64 instance; 8 and 120 zero-padded to 16
+        # and 128), offsets and windows that are not multiples of a tile,
+        # one row, one query over a long cache, non-causal.
+        k5_case("bf16_d96", 1, 32, 32, 300, 300, 96, True, 0, bf, BF16_TOL)
+        k5_case("bf16_d48", 2, 4, 2, 200, 200, 48, True, 0, bf, BF16_TOL)
+        k5_case("bf16_d8", 1, 4, 4, 130, 130, 8, True, 0, bf, BF16_TOL)
+        k5_case("bf16_d120", 1, 6, 2, 130, 130, 120, True, 40, bf, BF16_TOL)
+        k5_case("bf16_offset37", 2, 8, 2, 300, 337, 64, True, 0, bf, BF16_TOL)
+        k5_case("bf16_window77", 2, 25, 5, 700, 700, 64, True, 77, bf, BF16_TOL)
+        k5_case("bf16_s1_window", 2, 25, 5, 1, 1, 64, True, 1024, bf, BF16_TOL)
+        k5_case("bf16_sq1_skv4096", 4, 16, 8, 1, 4096, 128, True, 0, bf, BF16_TOL)
+        k5_case("bf16_s1000_d128", 1, 16, 8, 1000, 1000, 128, True, 0, bf, BF16_TOL)
+        k5_case("bf16_bidirectional", 2, 4, 2, 200, 263, 32, False, 0, bf, BF16_TOL)
 
         def k6_case(name, B, S, H, G, P, N, dtype, tol, zero_tail=0):
             x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, dtype)
@@ -2508,19 +2615,98 @@ def chaos_control(torch, arch, B: int = 1, S: int = 1024):
 
 def decode_trace(torch, M, params, cfg, cache, tok, n: int = 10):
     """``--profile``: ``torch.profiler`` over ``n`` decode steps (after two
-    untimed ones): device idle share and device time by kernel name."""
+    untimed ones): device idle share, device time by kernel name, the
+    device ms per step of copy kernels (``direct_copy_kernel``: dtype
+    casts and layout copies; the float32 copies of the KV cache were the
+    largest of them) and the largest ``aten::copy_`` calls by the shapes
+    they copy (device ms per step), which tells the cache's copies from
+    the others'."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         M.decode_step(params, cfg, cache, tok)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(n):
             M.decode_step(params, cfg, cache, tok)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    return {"steps": n, **device_window(prof, wall_us)}
+        time.sleep(PROFILE_MARGIN_S)
+    copy_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "direct_copy_kernel" in e.name)
+    copies = sorted(((str(a.input_shapes), a.device_time_total, a.count)
+                     for a in prof.key_averages(group_by_input_shape=True)
+                     if a.key == "aten::copy_"), key=lambda c: -c[1])[:6]
+    return {"steps": n, **device_window(prof, wall_us),
+            "copy_kernels_ms_per_step": copy_us / 1e3 / n,
+            "copy_calls_by_shape": [{"shapes": sh, "ms_per_step": us / 1e3 / n,
+                                     "calls_per_step": cnt / n}
+                                    for sh, us, cnt in copies]}
+
+
+# Decode attention over a bfloat16 cache at B = 4: hymba's windowed layers
+# (a ring of 1,024 slots, all filled; 25 over 5 heads, D 64) and qwen3's
+# (the 4,129-slot cache of a 4,096-token prefill and 32 steps, 4,113
+# filled; 16 over 8, D 128): (label, H, Hk, D, slots, filled).
+DECODE_SHAPES = (("hymba", 25, 5, 64, 1024, 1024),
+                 ("qwen3", 16, 8, 128, LM_S + LM_DECODE_STEPS + 1, LM_S + 17))
+# The reference's decode tolerance (tests/test_lm_models.py), the CPU
+# tests' bound for the decode attentions against JAX.
+DECODE_TOL = 3e-4
+
+
+def decode_attention_check(torch):
+    """On the card, ``layers._attend_cache`` (the products of both decode
+    attentions: bfloat16 GEMMs with float32 output over views of the cache)
+    against the float32-copy form it replaced (the same arithmetic on
+    float32 copies of the cache) within DECODE_TOL, elementwise; the memory
+    a call allocates beyond its inputs, held below one float32 copy of one
+    cache (no such copy is made); times of both."""
+    from repro_torch.models.lm import layers as L
+
+    gen = torch.Generator().manual_seed(16)
+    out = {}
+    with torch.no_grad():
+        for label, H, Hk, D, T, filled in DECODE_SHAPES:
+            B, G = LM_B, H // Hk
+            qg = (torch.randn((B, Hk, G, D), generator=gen) / math.sqrt(D)).to(
+                DEVICE, torch.bfloat16)
+            kc, vc = (torch.randn((B, T, Hk, D), generator=gen).to(DEVICE, torch.bfloat16)
+                      for _ in range(2))
+            allow = torch.arange(T, device=DEVICE) < filled
+
+            def helper():
+                return L._attend_cache(qg, kc, vc, allow)
+
+            def copy_form():
+                s = torch.einsum("bhgd,bthd->bhgt", qg.float(), kc.float())
+                p = torch.softmax(torch.where(allow, s, L.NEG_INF), dim=-1)
+                return torch.einsum("bhgt,bthd->bhgd", p.to(vc.dtype).float(),
+                                    vc.float())
+
+            helper()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = helper()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            err = compare(torch, got, copy_form(), f"decode attention {label}", DECODE_TOL)
+            f32_cache = 4 * kc.numel()
+            check(extra < f32_cache, f"decode attention {label}: a call allocated "
+                                     f"{extra} bytes; a float32 copy of a cache is {f32_cache}")
+            out[label] = dict(B=B, H=H, Hk=Hk, D=D, slots=T, filled=filled,
+                              max_abs_err=err, peak_extra_bytes=extra,
+                              f32_cache_copy_bytes=f32_cache,
+                              ms=time_ms(torch, helper, 20),
+                              copy_form_ms=time_ms(torch, copy_form, 20))
+            del qg, kc, vc, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def lm_phase(torch, profile=False):
@@ -2537,7 +2723,7 @@ def lm_phase(torch, profile=False):
 
     from repro_torch.configs import get_arch
 
-    out = {}
+    out = {"decode_attention": decode_attention_check(torch)}
     for arch in ("hymba-1.5b", "qwen3-0.6b", "mamba2-780m"):
         V = get_arch(arch).vocab_size
         tokens = torch.as_tensor(np.random.default_rng(5).integers(
@@ -2638,7 +2824,8 @@ def main() -> int:
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {name: [ln.strip() for ln in log.splitlines()
                                if "registers" in ln or "spill" in ln]
-                        for name, log in logs.items()}})
+                        for name, log in logs.items()},
+              "profiler_clock": profiler_clock(torch)})
 
         results, cases = kernels_phase(torch)
         k2, k2_cases = k2_phase(torch, torch.Generator().manual_seed(1))
@@ -2686,17 +2873,19 @@ def main() -> int:
                                             "step_loss": STEP_LOSS_TOL}, **tg})
         torch.cuda.empty_cache()
 
+        clock = [profiler_clock(torch), profiler_clock(torch, PROFILE_MARGIN_S)]
         lmk, lmk_cases = lm_kernels_phase(torch)
         emit({"phase": "lm_kernels", "tolerance": {"atol": ATOL, "rtol": RTOL,
                                                    "bf16": BF16_TOL, "ssd_state": SSD_TOL},
               "peaks": {"f32_flops": PEAK_F32_FLOPS, "bf16_flops": PEAK_BF16_FLOPS,
                         "bytes_per_s": PEAK_BYTES},
-              "shapes": lmk, "degenerate": lmk_cases})
+              "profiler_clock": clock, "shapes": lmk, "degenerate": lmk_cases})
         lm = lm_phase(torch, profile="--profile" in sys.argv[1:])
         emit({"phase": "lm", "tolerance": {"bf16_layer": LM_LAYER_TOL,
                                            "f32_model": LM_F32_TOL,
                                            "f32_cache": LM_F32_CACHE_TOL,
-                                           "kernel_bf16": BF16_TOL}, **lm})
+                                           "kernel_bf16": BF16_TOL,
+                                           "decode_attention": DECODE_TOL}, **lm})
 
         if "--profile" in sys.argv[1:]:
             pipe, prof = profile_phase(torch)
@@ -2783,6 +2972,9 @@ def main() -> int:
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "shape": "E=256 D=64 G=9000",
+        "device_us": k4["device_us"], "library_device_us": k4["library_device_us"],
+        "daily": {k: seg["d_d64"][k] for k in ("E", "ms", "device_us", "library_ms",
+                                               "library_device_us", "bound_ms")},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": FA_SOURCE, "replaces": TPU_K5,
@@ -2792,8 +2984,12 @@ def main() -> int:
         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
         "library_ms": k5["library_ms"], "shape": "hymba B=4 S=4096 H=25/5 D=64 window=1024 bf16",
-        "qwen3": {k: lmk["K5_qwen3"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms")},
+        "device_us": k5["device_us"], "library_device_us": k5["library_device_us"],
+        "device_us_cuda_events_idle_stream": k5["device_us_cuda_events_idle_stream"],
+        "bound_share": k5["bound_share"],
+        "qwen3": {k: lmk["K5_qwen3"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us",
+            "library_device_us", "device_us_cuda_events_idle_stream", "bound_share")},
     }, {
         "name": "ssd_chunk", "route": "cuda",
         "source": SSD_SOURCE, "replaces": TPU_K6,
@@ -2803,8 +2999,11 @@ def main() -> int:
         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"],
         "library_ms": None, "shape": "hymba B=4 S=4096 H=50 P=64 N=16 G=1 bf16",
-        "mamba2": {k: lmk["K6_mamba2"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                     "bound_by")},
+        "device_us": k6["device_us"],
+        "device_us_cuda_events_idle_stream": k6["device_us_cuda_events_idle_stream"],
+        "mamba2": {k: lmk["K6_mamba2"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "device_us",
+            "device_us_cuda_events_idle_stream")},
     }], "wrappers_off_main_path": [{
         "name": "fused_recency_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1W,

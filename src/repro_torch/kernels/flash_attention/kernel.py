@@ -4,10 +4,14 @@
 ``repro.kernels.flash_attention.kernel.flash_attention_kernel``
 (``kernel.py:77`` of the reference): online-softmax GQA attention, causal
 with the offset ``Skv - Sq``, with an optional sliding window, forward only.
-One block per (batch, head, 64-row q tile) walks only the kv tiles that the
-causal bound and the window leave visible. It is bounded by operations (the
-two products per visible pair, on the CUDA cores in float32); the source's
-head comment says what the design does about that.
+It is bounded by operations (the two products per visible pair). bfloat16
+inputs run on the tensor cores (``mma.sync`` bf16 -> float32, one block
+per (batch, head, 128-row q tile)); float32 inputs on the CUDA
+cores in float32 (one block per (batch, head, 64-row q tile)), a dispatch
+on dtype. Either walks only the kv tiles of 64 keys that the causal bound
+and the window leave visible (``kv_tile_range``) and evaluates the mask
+only in the tiles that need it (``tile_needs_mask``); the source's head
+comment says what the design does about its bound.
 
 ``flash_attention_kernel`` checks device, dtype, shapes, strides and
 alignment, allocates its output with ``torch.empty``, launches on the
@@ -30,7 +34,34 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LAUNCHES = {"flash_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (q rows, keys) of a block's tiles: the tensor-core kernel (bfloat16) and
+# the CUDA-core kernel (float32).
+TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
 _lib = None
+
+
+def kv_tile_range(q0: int, Sq: int, Skv: int, causal: bool, window: int,
+                  block_q: int, block_k: int):
+    """The kv tiles ``[t_beg, t_end)`` of ``block_k`` keys that the q tile
+    of rows ``q0 .. q0 + block_q - 1`` walks: a mirror of the CUDA source's
+    ``kv_tile_range``. A tile outside it is masked for every row; one
+    inside it is visible to some row."""
+    off = Skv - Sq
+    first = q0 + off
+    last = min(q0 + block_q, Sq) - 1 + off
+    kend = min(Skv, last + 1) if causal else Skv
+    kbeg = max(0, first - window + 1) if window > 0 else 0
+    return kbeg // block_k, -(-kend // block_k)
+
+
+def tile_needs_mask(q0: int, k0: int, Sq: int, Skv: int, causal: bool,
+                    window: int, block_q: int, block_k: int) -> bool:
+    """Whether the kernel evaluates the mask in the tile of q rows ``q0 ..``
+    and keys ``k0 ..``: a mirror of the CUDA source's ``tile_needs_mask``.
+    When False, every pair of the tile is visible."""
+    off = Skv - Sq
+    return (k0 + block_k > Skv or (causal and k0 + block_k - 1 > q0 + off)
+            or (window > 0 and k0 <= q0 + block_q - 1 + off - window))
 
 
 def reset_launches() -> None:

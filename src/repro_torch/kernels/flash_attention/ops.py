@@ -20,7 +20,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, H, Sq, D); k, v: (B, Hk, Skv, D) -> (B, H, Sq, D); with
     ``layout="bshd"`` the model's (B, S, H, D) tensors, in and out. (The
     reference's ``block_q``/``block_k`` tile the TPU kernel; the CUDA
-    kernel's tile is fixed at 64 x 64, so they are not taken.)
+    kernel's tiles are fixed per dtype (``kernel.TILES``), so they are not
+    taken.)
     """
     if use_kernel(mode, q):
         return flash_attention_kernel(q, k, v, causal=causal, window=window,

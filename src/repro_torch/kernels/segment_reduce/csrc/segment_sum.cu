@@ -20,101 +20,220 @@
 // nothing: the bound is bytes, about 0.7 us on an H100, below the cost of
 // a launch.
 //
-// Design, the simple deterministic one: a block owns a tile of TG segments x
-// C columns of the output as float accumulators in shared memory (16 KB).
-// Thread t owns column c = t % C and the segments g0 + l + k*L of the tile
-// (l = t / C, L = 256 / C lanes). The block stages the ids and their rows'
-// C columns through shared memory, 128 edges at a time (the row loads are
-// coalesced and many are in flight), and every thread walks the staged ids
-// in edge order, adding the row's value when the id is one of its segments.
-// A run of edges into the same segment adds in a register that starts from
-// the accumulator and is stored back when the run ends: a snapshot's padding
-// is one long run into segment 0, which would otherwise chain one dependent
-// memory access per edge. So each output element is one thread's float sum
-// in edge order: no atomics, the same bits on every run, and the order of
-// the CPU's index_add_. Every element of the tile, the zeros of empty
-// segments included, is then written once. C is 32 when D >= 32 (a warp stages one
-// 128-byte piece of an edge row), else the least power of two >= D, so the
-// degree sums (D = 1) still use the whole block, as 256 lanes.
-//
-// Every thread walks all E ids, and that walk sets the time: about 24 us at
-// E = 256 and 167 us at E = 2,048 on an H100 (chip_smoke.py), far above the
-// bound. Compacting each block's ids first (one test per id per block), or
-// sorting a snapshot's ids once for all the sums that reuse them, is later
-// work.
+// Design: a block of 8 warps owns a tile of TG segments x 32 columns of the
+// output as float accumulators in shared memory (at most 16 KB); the wrapper
+// sizes the tiles (kernel.py `segment_tiles`) for about four blocks per SM,
+// since a snapshot's ids crowd the low segments (the users): the first tile
+// holds most of a snapshot's ids, the id-0 run of node 0 and the padding
+// among them. Lane l of every warp owns column d0 + l; warp w owns the
+// tile's segments g with g % 8 == w.
+//   1. Compact. The block reads the E ids once, coalesced, 2,048 at a time
+//      (8 per thread), and keeps the edges whose id falls in its tile: a warp
+//      ballot, __popc and a block-wide exclusive scan of the 64 warp counts
+//      place each kept edge at its rank, so the list keeps the edge order.
+//      A block then walks about E / (number of tiles) listed edges, not E
+//      (the kernel before this one had every thread of every block walk all
+//      E ids: 24 us at the hourly shape, 167 at the daily on an H100).
+//   2. Sum, 128 listed edges (a stage) at a time. The stage's 32 columns of
+//      its rows come into registers by unguarded loads, all in flight at
+//      once, while the stage before is summed, and then into shared memory.
+//      Each warp picks out its own edges of the stage by ballot, in order,
+//      and walks only those: a run of edges into one segment adds in a
+//      register started from the accumulator and parked there when the run
+//      ends; 16 edges that all continue the current run (the padding run)
+//      take a path of adds only. So each output element is one thread's
+//      float sum in edge order: no atomics, the same bits on every run, and
+//      the order of the CPU's index_add_.
+//   3. Write. Every element of the tile, the zeros of empty segments
+//      included, is written once, with 16-byte stores (the tile is a
+//      contiguous run of the output when D <= 32; rows of 32 columns else).
+// The busiest tile's walk sets the time: its run is one dependent add per
+// edge, the stages' loads and barriers one warp's latency each (PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kAcc = 4096;    // accumulators per block: 16 KB
-constexpr int kChunk = 128;   // edges staged per round: ids and C columns
-constexpr int kMaxC = 32;
-constexpr int kUnroll = 8;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = 32;                // columns of a tile: a warp's lanes
+constexpr int kAcc = 4096;               // accumulators per block: 16 KB
+constexpr int kIds = 2048;               // ids compacted per round
+constexpr int kRounds = kIds / kThreads; // ids per thread per round
+constexpr int kStage = 128;              // listed edges whose rows are staged at once
+constexpr int kUnroll = 16;
+constexpr int kPerThread = kStage * kCols / kThreads;  // staged values a thread loads
+
+// Columns d0 .. d0 + 31 of the rows of listed edges s0 .. s0 + m - 1 into
+// registers, thread t holding value t + 256 u of the (m, 32) block (zeros
+// past m and past D); the loads are unguarded, so all of them are in flight.
+__device__ __forceinline__ void load_rows(float* staged, const float* __restrict__ data,
+                                          const int* edge, int s0, int m, int D, int d0) {
+  const int lane = threadIdx.x & 31;
+  const int col = min(d0 + lane, D - 1);  // (threadIdx.x + 256 u) % 32 == lane
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const float got = data[static_cast<size_t>(edge[s0 + min(i / kCols, m - 1)]) * D + col];
+    staged[u] = i < m * kCols && d0 + lane < D ? got : 0.f;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ seg,
-                   float* __restrict__ out, int E, int D, int G, int C) {
-  __shared__ float acc[kAcc];
-  __shared__ int ids[kChunk];
-  __shared__ float rows[kChunk * kMaxC];
-  const int tid = threadIdx.x;
-  const int lanes = kThreads / C;   // a power of two
-  const int tg = kAcc / C;          // segments in this block's tile
-  const int g0 = blockIdx.x * tg;
-  const int d0 = blockIdx.y * C;
-  const int c = tid % C;
-  const int lane = tid / C;
-  const bool live = d0 + c < D;
+                   float* __restrict__ out, int E, int D, int G, int TG) {
+  __shared__ __align__(16) float acc[kAcc];
+  __shared__ float rows[kStage * kCols];
+  __shared__ int edge[kIds];     // the list: edge index ...
+  __shared__ short local[kIds];  // ... and its segment within the tile
+  __shared__ unsigned char mine[kWarps][kStage];  // each warp's entries of a stage
+  __shared__ int rank[kRounds * kWarps];
+  __shared__ int listed;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g0 = blockIdx.x * TG;
+  const int g_end = min(G, g0 + TG);
+  const int d0 = blockIdx.y * kCols;
 
-  for (int i = tid; i < kAcc; i += kThreads) acc[i] = 0.f;
-  int cur = -1;     // the segment (tile-local) of the current run
-  float run = 0.f;  // its running sum, started from the accumulator
-  for (int base = 0; base < E; base += kChunk) {
-    const int n = min(kChunk, E - base);
-    __syncthreads();  // the zeros are in place and the last chunk is read
-    for (int i = tid; i < n; i += kThreads) ids[i] = seg[base + i];
-    for (int i = tid; i < n * C; i += kThreads) {
-      const int e = i / C;
-      const int cc = i - e * C;
-      rows[i] = d0 + cc < D ? data[static_cast<size_t>(base + e) * D + d0 + cc]
-                            : 0.f;
+  for (int i = tid; i < TG * kCols; i += kThreads) acc[i] = 0.f;
+  int cur = -1;     // the segment (tile-local) of this warp's current run
+  float run = 0.f;  // its running sum (column d0 + lane), started from acc
+  for (int base = 0; base < E; base += kIds) {
+    // 1. Compact this round's ids: edge base + r * 256 + tid is the r-th id
+    // of thread tid, so (r, warp, lane) order is edge order.
+    int id[kRounds];
+    unsigned keep[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {  // unguarded loads, so all are in flight
+      const int e = base + r * kThreads + tid;
+      const int got = seg[min(e, E - 1)];
+      id[r] = e < E ? got : -1;
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      keep[r] = __ballot_sync(0xffffffffu, id[r] >= g0 && id[r] < g_end);
+      if (lane == 0) rank[r * kWarps + warp] = __popc(keep[r]);
     }
     __syncthreads();
-    if (!live) continue;
-    for (int i = 0; i < n; i += kUnroll) {
-      int g[kUnroll];
-      float v[kUnroll];
+    if (warp == 0) {  // exclusive scan of the 64 counts, two per lane
+      const int a = rank[2 * lane], b = rank[2 * lane + 1];
+      int x = a + b;
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {  // independent loads first
-        const int k = min(i + j, n - 1);
-        g[j] = i + j < n ? ids[k] : -1;
-        v[j] = rows[k * C + c];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
       }
+      rank[2 * lane] = x - a - b;
+      rank[2 * lane + 1] = x - b;
+      if (lane == 31) listed = x;
+    }
+    __syncthreads();
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {  // then the adds, in edge order
-        const int gl = g[j] - g0;
-        if (gl >= 0 && gl < tg && g[j] < G && (gl & (lanes - 1)) == lane) {
-          if (gl != cur) {
-            if (cur >= 0) acc[cur * C + c] = run;
-            cur = gl;
-            run = acc[gl * C + c];
-          }
-          run += v[j];
-        }
+    for (int r = 0; r < kRounds; ++r) {
+      if ((keep[r] >> lane) & 1u) {
+        const int pos = rank[r * kWarps + warp] + __popc(keep[r] & ((1u << lane) - 1u));
+        edge[pos] = base + r * kThreads + tid;
+        local[pos] = static_cast<short>(id[r] - g0);
       }
     }
+    __syncthreads();
+    const int n = listed;
+
+    // 2. Sum over the list, kStage edges at a time; a stage's rows are
+    // loaded into registers while the stage before it is walked.
+    float staged[kPerThread];
+    if (n > 0) load_rows(staged, data, edge, 0, min(kStage, n), D, d0);
+    for (int s0 = 0; s0 < n; s0 += kStage) {
+      const int m = min(kStage, n - s0);
+#pragma unroll
+      for (int u = 0; u < kPerThread; ++u)
+        if (tid + u * kThreads < m * kCols) rows[tid + u * kThreads] = staged[u];
+      // This warp's entries of the stage (segments = warp mod 8), in order.
+      int own = 0;
+      for (int k0 = 0; k0 < m; k0 += 32) {
+        const int k = k0 + lane;
+        const unsigned sel = __ballot_sync(
+            0xffffffffu, k < m && (local[s0 + min(k, m - 1)] & (kWarps - 1)) == warp);
+        if ((sel >> lane) & 1u)
+          mine[warp][own + __popc(sel & ((1u << lane) - 1u))] = static_cast<unsigned char>(k);
+        own += __popc(sel);
+      }
+      __syncthreads();  // the staged rows (and each warp's list) are in place
+      if (s0 + kStage < n)
+        load_rows(staged, data, edge, s0 + kStage, min(kStage, n - s0 - kStage), D, d0);
+      for (int i = 0; i < own; i += kUnroll) {
+        int gl[kUnroll];
+        float v[kUnroll];
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) {  // the loads first, all of them
+          const int k = mine[warp][min(i + j, own - 1)];
+          gl[j] = local[s0 + k];
+          v[j] = rows[k * kCols + lane];
+        }
+        bool same = i + kUnroll <= own;
+#pragma unroll
+        for (int j = 0; j < kUnroll; ++j) same = same && gl[j] == cur;
+        if (same) {
+          // The current run goes on through all kUnroll edges: adds only
+          // (a snapshot's padding run takes this path).
+#pragma unroll
+          for (int j = 0; j < kUnroll; ++j) run += v[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < kUnroll; ++j) {  // the adds, in edge order
+            if (i + j >= own) break;
+            if (gl[j] != cur) {  // a new run: park the last one
+              if (cur >= 0) acc[cur * kCols + lane] = run;
+              cur = gl[j];
+              run = acc[cur * kCols + lane];
+            }
+            run += v[j];
+          }
+        }
+      }
+      __syncthreads();  // the staged rows and the lists are read
+    }
   }
-  if (live && cur >= 0) acc[cur * C + c] = run;
+  if (cur >= 0) acc[cur * kCols + lane] = run;
   __syncthreads();
 
-  const int rows_out = min(tg, G - g0);
-  for (int i = tid; i < rows_out * C; i += kThreads) {
-    const int r = i / C;
-    const int cc = i - r * C;
-    if (d0 + cc < D) {
-      out[static_cast<size_t>(g0 + r) * D + d0 + cc] = acc[r * C + cc];
+  // 3. Write the whole tile.
+  const int rows_out = g_end - g0;
+  if (D <= kCols) {
+    // The tile is rows_out * D contiguous floats from g0 * D, which is
+    // 16-byte aligned (TG is a multiple of 4).
+    float* dst = out + static_cast<size_t>(g0) * D;
+    const int total = rows_out * D;
+    const int n4 = total / 4;
+    for (int i = tid; i < n4; i += kThreads) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int f = 4 * i + e;
+        const int r = f / D;
+        v[e] = acc[r * kCols + f - r * D];
+      }
+      reinterpret_cast<float4*>(dst)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    for (int f = 4 * n4 + tid; f < total; f += kThreads) {
+      const int r = f / D;
+      dst[f] = acc[r * kCols + f - r * D];
+    }
+  } else if (D % 4 == 0) {  // rows of 32 columns, 16 bytes at a time
+    constexpr int per_row = kCols / 4;
+    for (int i = tid; i < rows_out * per_row; i += kThreads) {
+      const int r = i / per_row;
+      const int cc = (i - r * per_row) * 4;
+      if (d0 + cc < D) {
+        const float* a = acc + r * kCols + cc;
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(g0 + r) * D + d0 + cc) =
+            make_float4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  } else {
+    for (int i = tid; i < rows_out * kCols; i += kThreads) {
+      const int r = i / kCols;
+      const int cc = i - r * kCols;
+      if (d0 + cc < D) out[static_cast<size_t>(g0 + r) * D + d0 + cc] = acc[r * kCols + cc];
     }
   }
 }
@@ -122,17 +241,17 @@ segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ seg,
 }  // namespace
 
 // data (E, D) float32, seg (E,) int32, out (G, D) float32, all contiguous on
-// one device; launches on `stream` and returns cudaGetLastError() (0 when
-// the launch was taken). E may be 0: the output is then all zeros.
+// one device; TG segments per block (the wrapper's `segment_tiles`: a
+// positive multiple of 4, at most 128). Launches on `stream` and returns
+// cudaGetLastError() (0 when the launch was taken). E may be 0: the output is
+// then all zeros.
 extern "C" int segment_sum(const float* data, const int* seg, float* out,
-                           int E, int D, int G, void* stream) {
-  if (E < 0 || D <= 0 || G <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int C = 1;
-  while (C < D && C < kMaxC) C <<= 1;
-  const int tg = kAcc / C;
-  const dim3 grid((G + tg - 1) / tg, (D + C - 1) / C);
+                           int E, int D, int G, int TG, void* stream) {
+  if (E < 0 || D <= 0 || G <= 0 || TG <= 0 || TG % 4 || TG * kCols > kAcc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((G + TG - 1) / TG, (D + kCols - 1) / kCols);
   segment_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, seg, out, E, D, G, C);
+      data, seg, out, E, D, G, TG);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 
 ``csrc/segment_sum.cu`` replaces the TPU kernel
 ``repro.kernels.segment_reduce.kernel.segment_sum_kernel``: a block owns a
-tile of segments x columns in shared memory and walks the ids in edge order,
+tile of segments x columns in shared memory (``segment_tiles`` sizes it),
+compacts the ids that fall in its tile in edge order and walks only those,
 each thread summing its own output elements, so the result is the same on
 every run (no atomics). It is bounded by the bytes of the output it writes;
 the source's head comment says what the design does about that.
@@ -25,6 +26,14 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_sum.cu"
 
 LAUNCHES = {"segment_sum": 0}
 
+# The card's SMs (H100 SXM) and the blocks the tiles are sized for on each:
+# a snapshot's ids crowd the low segments (the users), so small tiles spread
+# them over more blocks.
+SMS = 132
+BLOCKS_PER_SM = 4
+COLS = 32       # columns of a block's tile (a warp's lanes)
+ACC = 4096      # float accumulators of a block's tile (16 KB)
+
 _lib = None
 
 
@@ -41,12 +50,23 @@ def _library():
 
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_sum.argtypes = [p, p, p, i, i, i, p]
+        lib.segment_sum.argtypes = [p, p, p, i, i, i, i, p]
         lib.segment_sum.restype = i
         lib.segment_sum_error_string.argtypes = [i]
         lib.segment_sum_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def segment_tiles(D: int, G: int):
+    """The kernel's tiling of a (G, D) output: ``(TG, grid_x, grid_y)``, TG
+    segments (a multiple of 4, at most ACC / COLS) by COLS columns per
+    block (a warp's lanes; those past D idle), about BLOCKS_PER_SM blocks
+    per SM over the whole grid."""
+    grid_y = -(-D // COLS)
+    per_block = -(-G * grid_y // (SMS * BLOCKS_PER_SM))
+    TG = min(ACC // COLS, max(4, -(-per_block // 4) * 4))
+    return TG, -(-G // TG), grid_y
 
 
 def segment_sum_kernel(data, seg_ids, num_segments: int):
@@ -78,8 +98,9 @@ def segment_sum_kernel(data, seg_ids, num_segments: int):
     lib = _library()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
+        TG, _, _ = segment_tiles(D, G)
         err = lib.segment_sum(data.data_ptr(), seg_ids.data_ptr(),
-                              out.data_ptr(), E, D, G, stream)
+                              out.data_ptr(), E, D, G, TG, stream)
     if err:
         msg = lib.segment_sum_error_string(err).decode()
         raise RuntimeError(f"segment_sum launch failed: {msg} ({err})")

@@ -206,6 +206,34 @@ def swa_flash_attention(q, k, v, *, window: int, kv_block: int = 1024):
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
+def _attend_cache(qg, k_cache, v_cache, allow):
+    """Softmax attention of grouped queries over a KV cache in the
+    reference's ``preferred_element_type`` form. qg: (B, Hk, G, D); k_cache,
+    v_cache: (B, T, Hk, D); allow: (T,) bool. The scores and the weighted
+    sum accumulate in float32 from their operands' own dtype; the
+    probabilities are cast to the cache's dtype before the weighted sum.
+    Returns (B, Hk, G, D) float32.
+
+    Both products are batched GEMMs over views of the cache, one per batch
+    row with its kv heads as the batch (``k_cache[b].permute(1, 2, 0)`` is
+    a strided (Hk, D, T) operand, no copy). On the card each GEMM reads the
+    cache in its storage dtype with float32 output; the CPU has no
+    mixed-dtype GEMM, so there the operands go through float32 copies (the
+    same numbers: bf16 products are exact in float32).
+    """
+    if qg.is_cuda:
+        def mm(a, b):
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    else:
+        def mm(a, b):
+            return torch.bmm(a.float(), b.float())
+    rows = range(qg.shape[0])
+    s = torch.stack([mm(qg[b], k_cache[b].permute(1, 2, 0)) for b in rows])
+    s = torch.where(allow[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return torch.stack([mm(p[b], v_cache[b].transpose(0, 1)) for b in rows])
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      fast: bool = True):
     """Single-position attention over a cache. q: (B, 1, H, D);
@@ -214,7 +242,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
     ``fast=True`` follows the reference's mixed-precision form: q scaled in
     its own dtype, the cache's products accumulated in float32, the
-    probabilities cast to the cache's dtype before the weighted sum.
+    probabilities cast to the cache's dtype before the weighted sum
+    (``_attend_cache``: on the card the cache is read in its storage dtype,
+    never copied).
     """
     B, _, H, D = q.shape
     Smax, Hk = k_cache.shape[1], k_cache.shape[2]
@@ -226,11 +256,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
         allow &= pos > cache_len - 1 - window
     if fast:
         qg = q.reshape(B, Hk, G, D) * torch.tensor(scale, dtype=q.dtype)
-        s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
-        s = torch.where(allow[None, None, None, :], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
-                           v_cache.float())
+        out = _attend_cache(qg, k_cache, v_cache, allow)
         return out.reshape(B, 1, H, D).to(q.dtype)
     qg = q.reshape(B, Hk, G, D).float() * scale
     s = torch.einsum("bhgd,bthd->bhgt", qg, k_cache.float())
@@ -343,11 +369,8 @@ def cached_swa_attention(p, cfg: ArchConfig, x, cache, window: int):
     G = H // Hk
     scale = 1.0 / np.sqrt(D)
     qg = q.reshape(B, Hk, G, D) * torch.tensor(scale, dtype=q.dtype)
-    s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
     allow = (slot_pos >= 0) & (slot_pos <= idx) & (slot_pos > idx - window)
-    s = torch.where(allow[None, None, None, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgt,bthd->bhgd", pr.to(v_cache.dtype).float(), v_cache.float())
+    o = _attend_cache(qg, k_cache, v_cache, allow)
     o = o.reshape(B, 1, H, D).to(x.dtype)
     cache["idx"].add_(1)
     return _out_proj(p, cfg, o, x.dtype), cache

@@ -8,7 +8,9 @@ base, unaligned, sliding window, chunked decode with Sq = 32 over Skv = 96,
 bidirectional, GQA at D = 128, two in bfloat16) plus hymba's grouping (25
 query over 5 kv heads, D = 64, a window). Tolerances are the harness's:
 float32 2e-5, bfloat16 2e-2 (relative + absolute). The CUDA kernel itself
-runs only on the card (``chip_smoke.py``'s ``lm_kernels`` phase).
+runs only on the card (``chip_smoke.py``'s ``lm_kernels`` phase); its tile
+walk is held here through the Python mirror of its index math
+(``kv_tile_range``, ``tile_needs_mask``) at both kernels' tile sizes.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_kernel,
     flash_attention_ref,
+)
+from repro_torch.kernels.flash_attention.kernel import (
+    TILES,
+    kv_tile_range,
+    tile_needs_mask,
 )
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -100,3 +107,45 @@ def test_kernel_mode_raises_on_cpu():
         flash_attention_kernel(*tx, **kw)
     with pytest.raises(ValueError, match="unknown kernel dispatch mode"):
         flash_attention(*tx, **kw, mode="interpret")
+
+
+# (Sq, Skv, causal, window) for the tile walk: causal and not, windowed and
+# not, Sq < Skv at offsets that are not multiples of a tile, windows that
+# are not multiples of a tile and windows >= S, S = 1, hymba's prefill.
+WALK_CASES = [
+    (300, 300, True, 0), (300, 300, False, 0), (300, 300, True, 100),
+    (300, 300, False, 70), (37, 203, True, 0), (129, 1000, True, 77),
+    (100, 4096, True, 1024), (200, 263, False, 0), (1000, 1000, True, 2048),
+    (64, 64, True, 64), (1, 1, True, 0), (1, 1, False, 0), (1, 97, True, 5),
+    (1, 1, True, 3), (2048, 2048, True, 1024),
+]
+
+
+@pytest.mark.parametrize("tiles", sorted(set(TILES.values())),
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", WALK_CASES, ids=lambda c: "sq{}_skv{}_{}_w{}".format(
+    c[0], c[1], "causal" if c[2] else "full", c[3]))
+def test_kernel_tile_walk_covers_every_visible_pair(case, tiles):
+    """Each q tile walks every kv tile that holds a visible pair of its rows
+    and no other, and a tile it walks without the mask is visible whole."""
+    Sq, Skv, causal, window = case
+    bq, bk = tiles
+    i = np.arange(Sq)[:, None] + (Skv - Sq)
+    t = np.arange(Skv)[None, :]
+    vis = np.ones((Sq, Skv), dtype=bool)
+    if causal:
+        vis &= t <= i
+    if window:
+        vis &= t > i - window
+    for q0 in range(0, Sq, bq):
+        rows = vis[q0:q0 + bq]
+        beg, end = kv_tile_range(q0, Sq, Skv, causal, window, bq, bk)
+        assert 0 <= beg < end <= -(-Skv // bk)
+        for tt in range(-(-Skv // bk)):
+            tile = rows[:, tt * bk:(tt + 1) * bk]
+            if beg <= tt < end:
+                assert tile.any(), (q0, tt)
+                if not tile_needs_mask(q0, tt * bk, Sq, Skv, causal, window, bq, bk):
+                    assert tile.shape[1] == bk and tile.all(), (q0, tt)
+            else:
+                assert not tile.any(), (q0, tt)

@@ -179,6 +179,54 @@ def test_decode_attention(fast, window):
     _close(got, want)
 
 
+def test_decode_attention_goes_through_the_cache_helper(monkeypatch):
+    """Both decode attentions over a cache (``decode_attention``'s fast
+    form and ``cached_swa_attention``) compute their products in
+    ``_attend_cache``, the one helper that holds the card's mixed-dtype
+    GEMMs; the float32 form does not."""
+    calls = []
+    real = L._attend_cache
+
+    def spy(qg, k_cache, v_cache, allow):
+        calls.append(tuple(k_cache.shape))
+        return real(qg, k_cache, v_cache, allow)
+
+    monkeypatch.setattr(L, "_attend_cache", spy)
+    q, kc, vc = (torch.as_tensor(_normal((2, 1, 4, 16), 10)),
+                 torch.as_tensor(_normal((2, 24, 2, 16), 11)),
+                 torch.as_tensor(_normal((2, 24, 2, 16), 12)))
+    L.decode_attention(q, kc, vc, torch.tensor(17), window=5, fast=True)
+    assert calls == [(2, 24, 2, 16)]
+    L.decode_attention(q, kc, vc, torch.tensor(17), fast=False)
+    assert len(calls) == 1
+    jc, tc = _cfgs("hymba-1.5b", sliding_window=8)
+    _, tp = _params(JL.attention_specs(jc), tc, seed=3)
+    Hk, D = tc.num_kv_heads, tc.resolved_head_dim
+    cache = {"k": torch.zeros(1, 8, Hk, D), "v": torch.zeros(1, 8, Hk, D),
+             "slot_pos": torch.full((8,), -1, dtype=torch.int32),
+             "idx": torch.tensor(0, dtype=torch.int32)}
+    L.cached_swa_attention(tp, tc, torch.as_tensor(_normal((1, 1, tc.d_model), 40)),
+                           cache, 8)
+    assert calls[1:] == [(1, 8, Hk, D)]
+
+
+def test_cache_helper_is_the_float32_copy_form():
+    """On the CPU the helper's per-row GEMMs over views of a bfloat16 cache
+    give the float32-copy form's numbers (the reference's einsums on
+    float32 copies), to float32 rounding."""
+    B, T, Hk, G, D = 3, 40, 5, 5, 16
+    qg = torch.as_tensor(_normal((B, Hk, G, D), 30)).to(torch.bfloat16)
+    kc = torch.as_tensor(_normal((B, T, Hk, D), 31)).to(torch.bfloat16)
+    vc = torch.as_tensor(_normal((B, T, Hk, D), 32)).to(torch.bfloat16)
+    allow = torch.arange(T) < 33
+    s = torch.einsum("bhgd,bthd->bhgt", qg.float(), kc.float())
+    p = torch.softmax(torch.where(allow, s, L.NEG_INF), dim=-1)
+    want = torch.einsum("bhgt,bthd->bhgd", p.to(vc.dtype).float(), vc.float())
+    got = L._attend_cache(qg, kc, vc, allow)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("arch,window", [("qwen3-0.6b", 0), ("hymba-1.5b", 16),
                                          ("hymba-1.5b", 8)])
 def test_self_attention(arch, window):

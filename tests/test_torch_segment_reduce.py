@@ -11,7 +11,10 @@ the same, widths 1 and 33, 9,000 segments (above the TPU's 2,048 tile) and a
 single edge. Tolerance f32 ``rtol=atol=2e-5`` forward; the gradient (the
 reference's custom VJP, a gather) within 1e-4 of its largest entry. The
 CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against the plain version there.
+against the plain version there. Here a numpy emulation of its index math
+(the wrapper's tiling, each block's compaction of its ids in edge order,
+each thread's run-in-register sum, the tile's write) is held to the plain
+version's bits on CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.kernels.segment_reduce import (
     segment_sum_ref,
 )
 from repro_torch.kernels.segment_reduce import ops
+from repro_torch.kernels.segment_reduce.kernel import COLS, segment_tiles
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_RTOL = 1e-4
@@ -142,3 +146,109 @@ def test_ref_mode_is_the_plain_version():
     a = segment_sum(torch.from_numpy(data), torch.from_numpy(seg), G, mode="ref")
     b = segment_sum_ref(torch.from_numpy(data), torch.from_numpy(seg), G)
     assert torch.equal(a, b)
+
+
+THREADS, WARPS, ROUND, STAGE = 256, 8, 2048, 128
+
+
+def _emulate_kernel(data, seg, G):
+    """The CUDA kernel's index math in numpy, float32 throughout: for each
+    block of ``segment_tiles``' grid, the ids of each round of 2,048 that
+    fall in its tile, placed by the warp ballots' counts and their block
+    scan; then, stage by 128-edge stage, each warp (the segments ``own`` =
+    segment % 8) walking its own edges in order, its lanes the columns, a
+    run into one segment summed in a register started from the
+    accumulator; then the tile written whole. Returns the (G, D) output and
+    the largest list a block walked."""
+    E, D = data.shape
+    C = COLS
+    TG, gx, gy = segment_tiles(D, G)
+    assert TG % 4 == 0 and TG * C <= 4096
+    lanes = THREADS // C
+    out = np.full((G, D), np.nan, np.float32)
+    longest = 0
+    for bx in range(gx):
+        g0, g_end = bx * TG, min(G, (bx + 1) * TG)
+        for by in range(gy):
+            d0 = by * C
+            cols = min(C, D - d0)
+            acc = np.zeros((TG, C), np.float32)
+            cur = np.full(lanes, -1)
+            run = np.zeros((lanes, C), np.float32)
+            for base in range(0, E, ROUND):
+                e = base + np.arange(ROUND)
+                ids = np.where(e < E, seg[np.minimum(e, max(E - 1, 0))] if E else -1, -1)
+                keep = ((ids >= g0) & (ids < g_end)).reshape(ROUND // THREADS, WARPS, 32)
+                counts = keep.sum(-1).ravel()
+                rank = (np.cumsum(counts) - counts).reshape(keep.shape[:2])
+                pos = rank[..., None] + np.cumsum(keep, -1) - keep
+                listed = np.full(int(counts.sum()), -1)
+                listed[pos[keep]] = e.reshape(keep.shape)[keep]
+                assert (np.diff(listed) > 0).all()  # edge order
+                longest = max(longest, listed.size)
+                for s0 in range(0, listed.size, STAGE):
+                    staged = np.zeros((STAGE, C), np.float32)
+                    chunk = listed[s0:s0 + STAGE]
+                    staged[:chunk.size, :cols] = data[chunk, d0:d0 + cols]
+                    for j, edge in enumerate(chunk):
+                        gl = int(seg[edge]) - g0
+                        own = gl & (lanes - 1)
+                        if gl != cur[own]:
+                            if cur[own] >= 0:
+                                acc[cur[own]] = run[own]
+                            cur[own] = gl
+                            run[own] = acc[gl]
+                        run[own] = run[own] + staged[j]
+            for own in range(lanes):
+                if cur[own] >= 0:
+                    acc[cur[own]] = run[own]
+            out[g0:g_end, d0:d0 + cols] = acc[:g_end - g0, :cols]
+    return out, longest
+
+
+# (seed, E, D, G, ids): what the emulation is held on.
+EMULATION_CASES = {
+    "unsorted": (20, 256, 64, 9000, "unsorted"),
+    "padding_run": (21, 3000, 64, 9000, "padding"),
+    "all_equal": (22, 300, 33, 300, "equal"),
+    "out_of_range": (23, 500, 64, 9000, "out_of_range"),
+    "e0": (24, 0, 64, 9000, "unsorted"),
+    "e1": (25, 1, 64, 9000, "unsorted"),
+    "d1": (26, 2048, 1, 9000, "padding"),
+    "d33": (27, 400, 33, 9000, "unsorted"),
+    "g5": (28, 300, 3, 5, "unsorted"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EMULATION_CASES))
+def test_kernel_index_math_matches_the_plain_version_bitwise(name):
+    """Every output element written, each the edge-order float32 sum of its
+    segment's rows: the plain version's bits (the CPU's ``index_add_``)."""
+    seed, E, D, G, kind = EMULATION_CASES[name]
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((E, D)).astype(np.float32)
+    if kind == "equal":
+        seg = np.full(E, 7, np.int32)
+    elif kind == "out_of_range":
+        seg = rng.integers(-5, G + 50, E).astype(np.int32)
+    else:
+        seg = rng.integers(-1 if kind == "unsorted" else 0, G, E).astype(np.int32)
+    if kind == "padding":  # a snapshot's padding: id 0, zero rows, at the end
+        n_pad = E // 3
+        seg[-n_pad:] = 0
+        data[-n_pad:] = 0.0
+    got, longest = _emulate_kernel(data, seg, G)
+    want = segment_sum_ref(torch.from_numpy(data), torch.from_numpy(seg), G).numpy()
+    assert not np.isnan(got).any()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    if kind == "padding":  # the padding tile's list spans several stages
+        assert longest > STAGE
+
+
+def test_kernel_tiles_cover_the_output():
+    for D, G in ((1, 9000), (64, 9000), (33, 300), (3, 5), (128, 1), (1, 1)):
+        TG, gx, gy = segment_tiles(D, G)
+        assert gx * TG >= G > (gx - 1) * TG and gy * COLS >= D > (gy - 1) * COLS
+    # the hourly and daily sums (G = 9,000; D = 64 and 1) fill the 132 SMs
+    assert np.prod(segment_tiles(64, 9000)[1:]) >= 132
+    assert np.prod(segment_tiles(1, 9000)[1:]) >= 132
