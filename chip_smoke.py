@@ -81,14 +81,17 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
    window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
    chunk scan with groups and the final state) for hymba (H = 50, P = 64,
-   N = 16) and mamba2-780m (H = 48, N = 128); a second launch bitwise; times
-   of each kernel, its plain version and, for K5, SDPA, by CUDA events and
-   by ``torch.profiler``, each beside its bound; degenerate inputs (Sq !=
-   Skv, S = 1, S not a multiple of the tile or chunk, window >= S,
-   non-causal, float32 on K5's CUDA-core kernel, bfloat16 on its
-   tensor-core kernel at D = 8, 48, 96 and 120, offsets and windows that
-   are not multiples of a tile, one query over 4,096 keys, zero-dt rows,
-   groups); ``profiler_clock`` before the phase.
+   N = 16), mamba2-780m (H = 48, N = 128) and hymba's 32k prefill (B = 1,
+   S = 32,768); a second launch bitwise; times of each kernel, its plain
+   version and, for K5, SDPA, by CUDA events and by ``torch.profiler``,
+   each beside its bound (K6 also its share of the bound, each of its
+   three passes' device time and the bytes of its chunk-state scratch); degenerate inputs (Sq != Skv, S = 1, S not a
+   multiple of the tile or chunk, window >= S, non-causal, float32 on K5's
+   and K6's CUDA-core kernels, bfloat16 on K5's tensor-core kernel at D =
+   8, 48, 96 and 120, offsets and windows that are not multiples of a
+   tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
+   rows, steep decay in both types, groups incl. two at N = 128, P and N
+   not multiples of 16); ``profiler_clock`` before the phase.
 12. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
@@ -137,6 +140,7 @@ and the last line ``{"ok": true, "device": {"platform": "gpu",
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -221,6 +225,11 @@ PEAK_BF16_FLOPS = 989e12
 # LM_F32_CACHE_TOL (9.2e-4 measured there: the k/v of layers 2-4 carry the
 # parting of the layers below).
 LM_B, LM_S, LM_DECODE_STEPS = 4, 4096, 32
+# Warm timed prefills per path and model, after one cold run each: one
+# host-clock reading of mamba2's kernel-path prefill, the first after
+# emptying the allocator's cache, read 0.559 s where the other runs read
+# 0.215-0.224 s (the plain path 0.407-0.428 s; NVIDIA H100 80GB HBM3, 700 W).
+PREFILL_RUNS = 3
 SSD_TOL = 1e-3
 LM_LAYER_TOL = 3e-2
 LM_F32_TOL = 1e-3
@@ -957,11 +966,12 @@ def dtdg_experiment(model: str = "gclstm"):
 PROFILE_MARGIN_S = 2.0
 
 
-def device_us_per_call(torch, fn, n: int = 50):
+def device_us_per_call(torch, fn, n: int = 50, by_kernel: bool = False):
     """Device time (µs) per call of ``fn`` from ``torch.profiler``: the sum
     of the device kernels ``n`` calls launch, over ``n`` (after a warm-up
     call), the calls between idle margins of PROFILE_MARGIN_S; None when
-    the profiler recorded no device kernel (not measured)."""
+    the profiler recorded no device kernel (not measured). ``by_kernel``:
+    a dict of µs per call by kernel name instead (empty when none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -973,9 +983,14 @@ def device_us_per_call(torch, fn, n: int = 50):
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_MARGIN_S)
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    return sum(spans) / n if spans else None
+    if by_kernel:
+        out = {}
+        for name, us in spans:
+            out[name] = out.get(name, 0.0) + us / n
+        return out
+    return sum(us for _, us in spans) / n if spans else None
 
 
 def profiler_clock(torch, margin_s: float = 0.0):
@@ -2163,15 +2178,15 @@ def flash_inputs(torch, gen, B, H, Hk, Sq, Skv, D, dtype):
             for s in ((B, Sq, H, D), (B, Skv, Hk, D), (B, Skv, Hk, D))]
 
 
-def ssd_inputs(torch, gen, B, S, H, G, P, N, dtype):
+def ssd_inputs(torch, gen, B, S, H, G, P, N, dtype, dt_scale=1.0):
     """x, Bm, Cm as views of one (B, S, H P + 2 G N) tensor, as the model
-    splits its conv output; dt = softplus(N(0, 1)) and a = -exp(N(1, 0.3))
-    (the model's a_log starts at 1) in float32."""
+    splits its conv output; dt = dt_scale softplus(N(0, 1)) and a =
+    -exp(N(1, 0.3)) (the model's a_log starts at 1) in float32."""
     import torch.nn.functional as F
 
     xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=gen) * 0.5).to(DEVICE, dtype)
     x, bm, cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
-    dt = F.softplus(torch.randn((B, S, H), generator=gen)).to(DEVICE)
+    dt = (dt_scale * F.softplus(torch.randn((B, S, H), generator=gen))).to(DEVICE)
     a = -torch.exp(1.0 + 0.3 * torch.randn((H,), generator=gen)).to(DEVICE)
     return (x.reshape(B, S, H, P), dt, a, bm.reshape(B, S, G, N),
             cm.reshape(B, S, G, N))
@@ -2202,11 +2217,12 @@ def compare_rel(torch, got, want, what: str, tol: float):
 
 
 # K5 / K6 main shapes of the slice: (label, B, S, H, Hk, D, causal, window)
-# and (label, B, S, H, G, P, N), bfloat16.
+# and (label, B, S, H, G, P, N), bfloat16; K6 also at the 32k prefill's.
 K5_SHAPES = (("hymba", LM_B, LM_S, 25, 5, 64, True, 1024),
              ("qwen3", LM_B, LM_S, 16, 8, 128, True, 0))
 K6_SHAPES = (("hymba", LM_B, LM_S, 50, 1, 64, 16),
-             ("mamba2", LM_B, LM_S, 48, 1, 64, 128))
+             ("mamba2", LM_B, LM_S, 48, 1, 64, 128),
+             ("hymba_32k", 1, 32_768, 50, 1, 64, 16))
 
 
 def lm_kernels_phase(torch):
@@ -2220,10 +2236,9 @@ def lm_kernels_phase(torch):
     inputs: Sq != Skv, S = 1, S not a multiple of the tile or the chunk, a
     window >= S, non-causal, float32 (the CUDA-core kernel), bfloat16 (the
     tensor-core kernel) at D = 8, 48, 96 and 120, offsets and windows that
-    are not multiples of a tile, one query over 4,096 keys, K6 with zero-dt
-    rows, two groups, small P and N."""
+    are not multiples of a tile, one query over 4,096 keys; K6's shapes and
+    cases in ``k6_kernels``."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel, ssd_chunk_ref
 
     gen = torch.Generator().manual_seed(15)
     results, cases = {}, []
@@ -2262,30 +2277,6 @@ def lm_kernels_phase(torch):
             # idle stream, beside the profiler's reading, under its own name.
             r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
             del q, k, v, got
-            torch.cuda.empty_cache()
-
-        for label, B, S, H, G, P, N in K6_SHAPES:
-            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, torch.bfloat16)
-            y, st = ssd_chunk_kernel(x, dt, a, bm, cm)
-            wy, wst = ssd_chunk_ref(x, dt, a, bm, cm)
-            err = compare(torch, y, wy, f"K6 {label} y", BF16_TOL)
-            serr = compare_rel(torch, st, wst, f"K6 {label} state", SSD_TOL)
-            y2, st2 = ssd_chunk_kernel(x, dt, a, bm, cm)
-            check(bool(torch.equal(y2, y)) and bool(torch.equal(st2, st)),
-                  f"K6 {label}: a second launch gave other bits")
-            bound, by, nbytes, flops = ssd_bound(B, S, H, G, P, N, 2)
-            kern = lambda: ssd_chunk_kernel(x, dt, a, bm, cm)  # noqa: E731
-            plain = lambda: ssd_chunk_ref(x, dt, a, bm, cm)  # noqa: E731
-            r = results[f"K6_{label}"] = dict(
-                B=B, S=S, H=H, G=G, P=P, N=N, dtype="bfloat16", max_abs_err=err,
-                state_max_abs_err=serr[0], state_rel_err=serr[1],
-                rerun_bitwise_equal=True,
-                ms=time_ms(torch, kern, 5, 3), plain_ms=time_ms(torch, plain, 1, 3),
-                library_ms=None, device_us=device_us_per_call(torch, kern, 5),
-                plain_device_us=device_us_per_call(torch, plain, 2),
-                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
-            r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
-            del x, dt, a, bm, cm, y, st, wy, wst, y2, st2
             torch.cuda.empty_cache()
 
         def k5_case(name, B, H, Hk, Sq, Skv, D, causal, window, dtype, tol):
@@ -2331,8 +2322,113 @@ def lm_kernels_phase(torch):
         k5_case("bf16_s1000_d128", 1, 16, 8, 1000, 1000, 128, True, 0, bf, BF16_TOL)
         k5_case("bf16_bidirectional", 2, 4, 2, 200, 263, 32, False, 0, bf, BF16_TOL)
 
-        def k6_case(name, B, S, H, G, P, N, dtype, tol, zero_tail=0):
-            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, dtype)
+    k6, k6_cases = k6_kernels(torch, gen)
+    results.update(k6)
+    cases += k6_cases
+    return results, cases
+
+
+K6_PASSES = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_out_kernel")
+
+
+def k6_pass_us(by_name: dict, label: str) -> dict:
+    """Device µs per call of K6's three passes, keyed by kernel name, from
+    ``device_us_per_call(by_kernel=True)``'s profiler names (demangled,
+    with template and argument lists). Fails on a device kernel that is no
+    pass of K6, or on two kernels under one pass; empty when the profiler
+    recorded nothing (not measured)."""
+    out, seen = {}, {}
+    for name, us in by_name.items():
+        hit = [k for k in K6_PASSES if k in name]
+        check(len(hit) == 1, f"K6 {label}: device kernel {name!r} is no pass of K6")
+        check(hit[0] not in seen, f"K6 {label}: {name!r} and {seen.get(hit[0])!r} "
+              f"are both {hit[0]}")
+        seen[hit[0]] = name
+        out[hit[0]] = us
+    return out
+
+
+def k6_kernels(torch, gen):
+    """K6 against its plain version (``ssd_chunk_ref``) on the card: at the
+    main shapes (hymba, H 50, P 64, N 16, and mamba2, H 48, N 128, one
+    group, B = 4 x S = 4,096; hymba's 32k prefill, B = 1) y to BF16_TOL and
+    the final state to SSD_TOL of its largest entry, a second launch
+    bitwise, times by CUDA events and the profiler (also per pass) beside
+    the bound and its share, the scratch's bytes (measured and planned),
+    at mamba2's shape y and the state also against the recurrence
+    (``ssd_ref``); then cases: S = 1, 33, 129 and 4,095 (chunks of 128 cut
+    short), zero-dt rows at the end, steep decay (dt x
+    10: the inclusive sum of dt a passes -88 within a chunk) in bfloat16
+    and float32, groups (two at N 128 in bfloat16), P and N not multiples
+    of 16 (element loads), float32 on the CUDA-core kernel."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel, ssd_chunk_ref, ssd_ref
+    from repro_torch.kernels.ssd_chunk.kernel import CHUNK, chunk_plan
+
+    results, cases = {}, []
+    with torch.no_grad():
+        for label, B, S, H, G, P, N in K6_SHAPES:
+            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, torch.bfloat16)
+            y, st = ssd_chunk_kernel(x, dt, a, bm, cm)
+            wy, wst = ssd_chunk_ref(x, dt, a, bm, cm)
+            err = compare(torch, y, wy, f"K6 {label} y", BF16_TOL)
+            serr = compare_rel(torch, st, wst, f"K6 {label} state", SSD_TOL)
+            y2, st2 = ssd_chunk_kernel(x, dt, a, bm, cm)
+            check(bool(torch.equal(y2, y)) and bool(torch.equal(st2, st)),
+                  f"K6 {label}: a second launch gave other bits")
+            bound, by, nbytes, flops = ssd_bound(B, S, H, G, P, N, 2)
+            kern = lambda: ssd_chunk_kernel(x, dt, a, bm, cm)  # noqa: E731
+            plain = lambda: ssd_chunk_ref(x, dt, a, bm, cm)  # noqa: E731
+            r = results[f"K6_{label}"] = dict(
+                B=B, S=S, H=H, G=G, P=P, N=N, dtype="bfloat16", max_abs_err=err,
+                state_max_abs_err=serr[0], state_rel_err=serr[1],
+                rerun_bitwise_equal=True,
+                ms=time_ms(torch, kern, 5, 3), plain_ms=time_ms(torch, plain, 1, 3),
+                library_ms=None, device_us=device_us_per_call(torch, kern, 5),
+                plain_device_us=device_us_per_call(torch, plain, 2),
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+            r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
+            r["bound_share"] = bound / r["ms"]
+            r["device_us_by_pass"] = k6_pass_us(
+                device_us_per_call(torch, kern, 5, by_kernel=True), label)
+            # The float32 chunk states and decays: written by the first
+            # pass, read and overwritten by the second, read by the third.
+            # Measured: the rise of the allocator's peak over one call, less
+            # the outputs; planned: ``chunk_plan``'s shapes.
+            plan = chunk_plan(B, S, H, G, P, N)
+            r["scratch_bytes_planned"] = 4 * (math.prod(plan["scratch"])
+                                              + math.prod(plan["decay"]))
+            del y2, st2
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m0 = torch.cuda.memory_allocated()
+            y2, st2 = kern()
+            torch.cuda.synchronize()
+            r["scratch_bytes"] = (torch.cuda.max_memory_allocated() - m0
+                                  - y2.numel() * y2.element_size()
+                                  - st2.numel() * st2.element_size())
+            check(r["scratch_bytes"] >= r["scratch_bytes_planned"],
+                  f"K6 {label}: a call allocated {r['scratch_bytes']} bytes of "
+                  f"scratch, less than its plan's {r['scratch_bytes_planned']}")
+            r["scratch_traffic_ms"] = 4 * r["scratch_bytes_planned"] / PEAK_BYTES * 1e3
+            if label == "mamba2":  # the kernel against the recurrence
+                ry, rst = [], []
+                for b in range(B):
+                    heads = lambda t: t[b].expand(S, H, N)  # noqa: E731
+                    wyb, wsb = ssd_ref(x[b], dt[b], a, heads(bm), heads(cm))
+                    ry.append(wyb)
+                    rst.append(wsb)
+                r["recurrence_max_abs_err"] = compare(
+                    torch, y, torch.stack(ry), f"K6 {label} y vs the recurrence", BF16_TOL)
+                r["recurrence_state_rel_err"] = compare_rel(
+                    torch, st, torch.stack(rst), f"K6 {label} state vs the recurrence",
+                    SSD_TOL)[1]
+                del ry, rst
+            del x, dt, a, bm, cm, y, st, wy, wst, y2, st2
+            torch.cuda.empty_cache()
+
+        def k6_case(name, B, S, H, G, P, N, dtype, tol, zero_tail=0, dt_scale=1.0):
+            x, dt, a, bm, cm = ssd_inputs(torch, gen, B, S, H, G, P, N, dtype,
+                                          dt_scale=dt_scale)
             if zero_tail:
                 dt[:, S - zero_tail:] = 0.0
             y, st = ssd_chunk_kernel(x, dt, a, bm, cm)
@@ -2344,10 +2440,14 @@ def lm_kernels_phase(torch):
                                                for t in (x, dt)), a,
                                              bm[:, :S - zero_tail], cm[:, :S - zero_tail])
                 compare_rel(torch, st, st_cut, f"K6 {name} zero-dt tail", SSD_TOL)
+            # the lowest inclusive sum of dt a within a chunk
+            cum = torch.cumsum((dt * a)[:, :min(S, CHUNK)], dim=1)
             cases.append({"kernel": "K6", "case": name, "S": S, "H": H, "G": G,
                           "P": P, "N": N, "dtype": str(dtype), "max_abs_err": err,
-                          "state_rel_err": serr[1]})
+                          "state_rel_err": serr[1], "min_cum": float(cum.min())})
+            return cum
 
+        bf, f32 = torch.bfloat16, torch.float32
         k6_case("s1", 2, 1, 50, 1, 64, 16, bf, BF16_TOL)
         k6_case("s33_unaligned", 2, 33, 48, 1, 64, 128, bf, BF16_TOL)
         k6_case("zero_dt_tail", 2, 200, 50, 1, 64, 16, bf, BF16_TOL, zero_tail=37)
@@ -2355,6 +2455,17 @@ def lm_kernels_phase(torch):
         k6_case("f32_mamba2", 1, 1000, 48, 1, 64, 128, f32, ATOL)
         k6_case("two_groups", 2, 300, 8, 2, 32, 64, f32, ATOL)
         k6_case("p16_n32", 1, 77, 3, 3, 16, 32, f32, ATOL)
+        k6_case("s129", 2, 129, 50, 1, 64, 16, bf, BF16_TOL)
+        k6_case("s4095_mamba2", 1, 4095, 48, 1, 64, 128, bf, BF16_TOL)
+        for name, dtype, tol in (("steep_decay", bf, BF16_TOL),
+                                 ("f32_steep_decay", f32, ATOL)):
+            cum = k6_case(name, 2, 300, 50, 1, 64, 16, dtype, tol, dt_scale=10.0)
+            check(float(cum.min()) < -88.0, f"K6 {name}: the decay is not steep")
+        k6_case("steep_decay_n128", 1, 300, 48, 1, 64, 128, bf, BF16_TOL, dt_scale=10.0)
+        k6_case("two_groups_n128", 2, 500, 48, 2, 64, 128, bf, BF16_TOL)
+        k6_case("bf16_two_groups_n64", 2, 300, 8, 2, 32, 64, bf, BF16_TOL)
+        k6_case("bf16_p36_n20", 1, 200, 6, 3, 36, 20, bf, BF16_TOL)
+        k6_case("bf16_g3_zero_tail", 1, 260, 6, 3, 16, 32, bf, BF16_TOL, zero_tail=5)
     return results, cases
 
 
@@ -2468,7 +2579,11 @@ def lm_model_run(torch, arch, *, tokens, new_tokens, tol, f32_layers=0,
                  profile=False):
     """One config on the card. The kernel-path prefill (the main path: K5
     and K6 counted, each call captured and held against the plain version
-    on its own inputs), then the same prefill timed without capture. The
+    on its own inputs), then the same prefill timed without capture, and
+    the plain one: each once cold (the first run after emptying the
+    allocator's cache), then PREFILL_RUNS warm runs each in turns
+    (medians), each run with its cudaMalloc calls, allocator retries,
+    garbage collections and CPU seconds. The
     random-init models are chaotic in depth (a 1e-7 change of the
     parameters moves hymba's logits by O(1) within 16 layers), so the
     prefill is held layer by layer (``layer_parity``, ``tol``) and the
@@ -2524,15 +2639,44 @@ def lm_model_run(torch, arch, *, tokens, new_tokens, tol, f32_layers=0,
         check(bool(torch.isfinite(lk.float()).all()), f"{cfg.name}: non-finite logits")
 
         def timed(mode):
+            """One prefill on the host's clock, with what may stall it: the
+            allocator's cudaMalloc calls and retries (a retry frees the
+            cache and synchronizes), Python's garbage collections and the
+            process's CPU seconds."""
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            m0, gc0 = torch.cuda.memory_stats(), sum(g["collections"] for g in gc.get_stats())
+            cpu, t = time.process_time(), time.perf_counter()
             out = M.prefill(params, cfg, prompt, max_len=max_len, mode=mode)
             torch.cuda.synchronize()
-            return out, time.perf_counter() - t
+            sec = time.perf_counter() - t
+            m1 = torch.cuda.memory_stats()
+            return out, {"seconds": sec, "cpu_seconds": time.process_time() - cpu,
+                         "cuda_mallocs": (m1.get("segment.all.allocated", 0)
+                                          - m0.get("segment.all.allocated", 0)),
+                         "alloc_retries": (m1.get("num_alloc_retries", 0)
+                                           - m0.get("num_alloc_retries", 0)),
+                         "gc_collections": sum(g["collections"] for g in gc.get_stats()) - gc0}
 
-        _, res["prefill_seconds"] = timed("auto")
+        # Each path once cold (its first run after emptying the allocator's
+        # cache, reported apart), then PREFILL_RUNS warm runs per path in
+        # turns; the warm medians and every run are reported.
+        for mode, key in (("auto", "prefill_cold"), ("ref", "plain_prefill_cold")):
+            torch.cuda.empty_cache()
+            out, res[key] = timed(mode)
+            del out
+        runs = {"auto": [], "ref": []}
+        for i in range(PREFILL_RUNS):
+            for mode in (("auto", "ref") if i % 2 == 0 else ("ref", "auto")):
+                out, info = timed(mode)
+                runs[mode].append(info)
+                if mode == "ref":
+                    lr, cr = out
+                del out
+        res["prefill_warm_runs"] = runs["auto"]
+        res["plain_prefill_warm_runs"] = runs["ref"]
+        res["prefill_seconds"] = statistics.median(r["seconds"] for r in runs["auto"])
+        res["plain_prefill_seconds"] = statistics.median(r["seconds"] for r in runs["ref"])
         res["prefill_tokens_per_s"] = B * S / res["prefill_seconds"]
-        (lr, cr), res["plain_prefill_seconds"] = timed("ref")
         if not f32_layers:
             res["layer_rel_err"], res["layer_cache_rel_err"] = layer_parity(
                 torch, M, params, cfg, prompt, max_len, tol)
@@ -3001,9 +3145,13 @@ def main() -> int:
         "library_ms": None, "shape": "hymba B=4 S=4096 H=50 P=64 N=16 G=1 bf16",
         "device_us": k6["device_us"],
         "device_us_cuda_events_idle_stream": k6["device_us_cuda_events_idle_stream"],
-        "mamba2": {k: lmk["K6_mamba2"][k] for k in (
+        "bound_share": k6["bound_share"], "scratch_bytes": k6["scratch_bytes"],
+        "device_us_by_pass": k6["device_us_by_pass"],
+        **{label: {k: lmk[f"K6_{label}"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "device_us",
-            "device_us_cuda_events_idle_stream")},
+            "device_us_cuda_events_idle_stream", "bound_share", "scratch_bytes",
+            "device_us_by_pass")}
+           for label in ("mamba2", "hymba_32k")},
     }], "wrappers_off_main_path": [{
         "name": "fused_recency_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1W,

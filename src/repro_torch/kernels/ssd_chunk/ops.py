@@ -25,7 +25,8 @@ def ssd(x, dt, a, B, C, *, mode: str = "auto"):
     """x: (S, H, P); dt: (S, H); a: (H,); B, C: (S, H, N) -> y (S, H, P).
 
     (The reference's ``chunk`` sizes the TPU kernel's chunk; the CUDA
-    kernel's is fixed at 32, and only rounding depends on it.)
+    kernel's is fixed: 128 for bfloat16 inputs, 32 for float32 ones. Only
+    rounding depends on it.)
     """
     if use_kernel(mode, x):
         y, _ = ssd_chunk_kernel(x[None], dt.float()[None], a.float(), B[None],

@@ -454,12 +454,16 @@ def ssd_mix(cfg: ArchConfig, xh, dt, A, Bm, Cm, chunk: int = 256,
     """Chunked SSD. xh: (B, S, H, P); dt: (B, S, H); A: (H,) (negative);
     Bm, Cm: (B, S, G, N). Returns (B, S, H, P) [, final_state (B, H, P, N)].
 
-    On a CUDA tensor with ``mode`` "auto" or "kernel" the scan is K6
-    (float32 arithmetic, groups broadcast in the kernel; no ``init_state``:
-    the prefill starts from zeros, and a CUDA call with one raises).
-    Otherwise the reference's algorithm: matmul-heavy einsums in the INPUT
-    dtype with float32 decay math, B/C broadcast to heads through a split
-    (G, H/G) head axis, and the inter-chunk recurrence in float32.
+    On a CUDA tensor with ``mode`` "auto" or "kernel" the scan is K6, and
+    ``chunk`` is the kernel's own (bfloat16: the same chunk-parallel
+    algorithm in chunks of 128, its products on the tensor cores with
+    float32 sums and float32 operands as two bfloat16 terms; float32: a
+    sequential walk in chunks of 32 on the CUDA cores). Groups are
+    broadcast in the kernel; no ``init_state``: the prefill starts from
+    zeros, and a CUDA call with one raises. Otherwise the reference's
+    algorithm: matmul-heavy einsums in the INPUT dtype with float32 decay
+    math, B/C broadcast to heads through a split (G, H/G) head axis, and the
+    inter-chunk recurrence in float32.
     """
     if use_kernel(mode, xh):
         if init_state is not None:

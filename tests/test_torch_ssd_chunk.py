@@ -11,6 +11,16 @@
   plain version on the CPU) against the reference model's
   ``layers.ssd_mix(return_state=True)`` at B = 2 with one and two groups,
   and against the recurrence per head, with ``dt = 0`` rows at the end.
+* ``ssd_chunk_ref`` at the bfloat16 kernel's chunk (128) and in its three
+  passes, against the recurrence and the reference's Pallas kernel in
+  interpret mode (chunk 128): S in {1, 127, 128, 129, 300}, one and two
+  groups, and steep decay (the inclusive sum of dt a below -88 inside a
+  chunk: finite, equal to the recurrence); the earlier form (decays from
+  differences of running sums) missing the recurrence under steep decay.
+* A numpy mirror of the bfloat16 kernel (``_emulate_kernel``): its grid
+  (``kernel.py::chunk_plan``), its passes, its float32 operands split into
+  two bfloat16 terms and the state's [8 x hi | 8 x lo] layout, held
+  against the plain version.
 
 The CUDA kernel runs only on the card (``chip_smoke.py``'s ``lm_kernels``).
 """
@@ -32,6 +42,11 @@ from repro_torch.kernels.ssd_chunk import (
     ssd_chunk_ref,
     ssd_chunk_scan,
     ssd_ref,
+)
+from repro_torch.kernels.ssd_chunk.kernel import (
+    CHUNK,
+    HEADS_PER_BLOCK,
+    chunk_plan,
 )
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -63,10 +78,10 @@ def _single(case, seed=0):
     return [np.asarray(v, np.float32) for v in (x, dt, a, B, C)]
 
 
-def _batched(Bsz, S, H, G, P, N, seed=0, pad_rows=0):
+def _batched(Bsz, S, H, G, P, N, seed=0, pad_rows=0, dt_scale=1.0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((Bsz, S, H, P)) * 0.5
-    dt = np.log1p(np.exp(rng.standard_normal((Bsz, S, H))))
+    dt = dt_scale * np.log1p(np.exp(rng.standard_normal((Bsz, S, H))))
     if pad_rows:
         dt[:, S - pad_rows:] = 0.0  # padded steps: decay 1, no input
     a = -np.exp(rng.standard_normal(H) * 0.3)
@@ -140,3 +155,251 @@ def test_kernel_mode_raises_on_cpu():
     single = list(map(torch.as_tensor, _single(CASES[0])))
     with pytest.raises(ValueError, match="CUDA"):
         ssd(*single, mode="kernel")
+
+
+def _per_row(args, b, G, H):
+    """Batch row b of batched inputs in the single-sequence signature (B
+    and C broadcast from groups to heads)."""
+    x, dt, a, Bm, Cm = args
+    rep = H // G
+    return (x[b], dt[b], a, np.repeat(Bm[b], rep, axis=1),
+            np.repeat(Cm[b], rep, axis=1))
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 300])
+def test_chunk_ref_at_kernel_chunk_matches_recurrence_and_reference_kernel(S, groups):
+    args = _batched(2, S, 4, groups, 16, 16, seed=S + groups)
+    y, st = ssd_chunk_ref(*map(torch.as_tensor, args))  # chunk 128, the kernel's
+    assert CHUNK == 128
+    for b in range(2):
+        row = _per_row(args, b, groups, 4)
+        wy, ws = ssd_ref(*map(torch.as_tensor, row))
+        np.testing.assert_allclose(y[b].numpy(), wy.numpy(), **CHUNKED_TOL)
+        np.testing.assert_allclose(st[b].numpy(), ws.numpy(), **CHUNKED_TOL)
+        jy = jax_ssd(*map(jnp.asarray, row), chunk=CHUNK, mode="interpret")
+        np.testing.assert_allclose(y[b].numpy(), np.asarray(jy), **SSD_TOL)
+
+
+def test_chunk_ref_steep_decay_is_finite_and_equals_the_recurrence():
+    """dt ten times the usual: the inclusive sum of dt a passes -88 (where
+    exp overflows float32 once negated) within the first chunk."""
+    args = _batched(2, 300, 4, 2, 16, 16, seed=7, dt_scale=10.0)
+    x, dt, a = args[:3]
+    assert np.cumsum(dt[:, :CHUNK] * a, axis=1).min() < -88.0
+    y, st = ssd_chunk_ref(*map(torch.as_tensor, args))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for b in range(2):
+        row = _per_row(args, b, 2, 4)
+        wy, ws = jax_ssd_ref(*map(jnp.asarray, row))
+        np.testing.assert_allclose(y[b].numpy(), np.asarray(wy), **CHUNKED_TOL)
+        np.testing.assert_allclose(st[b].numpy(), np.asarray(ws), **CHUNKED_TOL)
+        jy = jax_ssd(*map(jnp.asarray, row), chunk=CHUNK, mode="interpret")
+        np.testing.assert_allclose(y[b].numpy(), np.asarray(jy), **SSD_TOL)
+
+
+def _running_sum_difference_ref(x, dt, a, Bm, Cm, chunk):
+    """The earlier form of ``ssd_chunk_ref``: one chunk at a time, each
+    in-chunk decay exp(cum_i - cum_j) from the difference of two running
+    sums of dt a."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Hg = H // G
+    xf, dtf = x.reshape(Bsz, S, G, Hg, P), dt.reshape(Bsz, S, G, Hg)
+    af = a.reshape(G, Hg)
+    state = torch.zeros((Bsz, G, Hg, P, N))
+    ys = []
+    for t0 in range(0, S, chunk):
+        xc, dtc = xf[:, t0:t0 + chunk], dtf[:, t0:t0 + chunk]
+        Bc, Cc = Bm[:, t0:t0 + chunk], Cm[:, t0:t0 + chunk]
+        Q = xc.shape[1]
+        cum = torch.cumsum(dtc * af, dim=1)                     # (b, Q, g, h)
+        low = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[None, :, :, None, None]
+        diff = cum[:, :, None] - cum[:, None, :]                # (b, i, j, g, h)
+        L = torch.where(low, torch.exp(torch.where(low, diff, torch.zeros_like(diff))),
+                        torch.zeros_like(diff))
+        scores = torch.einsum("bign,bjgn->bijg", Cc, Bc)
+        xdt = xc * dtc[..., None]
+        y_diag = torch.einsum("bijgh,bjghp->bighp", scores[..., None] * L, xdt)
+        y_off = torch.einsum("bign,bghpn->bighp", Cc, state) * torch.exp(cum)[..., None]
+        ys.append(y_diag + y_off)
+        to_end = torch.exp(cum[:, -1:] - cum)
+        state = (state * torch.exp(cum[:, -1])[..., None, None]
+                 + torch.einsum("bjghp,bjgn->bghpn", to_end[..., None] * xdt, Bc))
+    return torch.cat(ys, dim=1).reshape(Bsz, S, H, P), state.reshape(Bsz, H, P, N)
+
+
+@pytest.mark.parametrize("shape,seed", [((1, 300, 4, 1, 16, 16), 1),
+                                        ((2, 300, 4, 2, 16, 16), 7)])
+def test_running_sum_difference_misses_the_recurrence_under_steep_decay(shape, seed):
+    """Why ``ssd_chunk_ref`` sums each in-chunk decay on its own: at chunk
+    128, dt ten times the usual and the model's decay rate (a = -exp(1 +
+    0.3 N(0, 1)), as the card's checks draw it), cum reaches the thousands
+    and the difference of two running sums loses |cum| ulps, so the earlier
+    form misses the recurrence by more than CHUNKED_TOL; the current form
+    holds it."""
+    Bsz, S, H, G, P, N = shape
+    args = _batched(*shape, seed=seed, dt_scale=10.0)
+    args[2] = args[2] * np.float32(np.e)
+    assert np.cumsum(args[1][:, :CHUNK] * args[2], axis=1).min() < -1000.0
+    old_y, _ = _running_sum_difference_ref(*map(torch.as_tensor, args), chunk=CHUNK)
+    y, st = ssd_chunk_ref(*map(torch.as_tensor, args))
+    missed = False
+    for b in range(Bsz):
+        wy, ws = map(np.asarray, jax_ssd_ref(*map(jnp.asarray, _per_row(args, b, G, H))))
+        missed |= not np.allclose(old_y[b].numpy(), wy, **CHUNKED_TOL)
+        np.testing.assert_allclose(y[b].numpy(), wy, **CHUNKED_TOL)
+        np.testing.assert_allclose(st[b].numpy(), ws, **CHUNKED_TOL)
+    assert missed
+
+
+# (Bsz, S, H, G, P, N): the LM shapes (hymba, mamba2, hymba's 32k prefill)
+# and small ones down to a single chunk and block.
+PLAN_SHAPES = [(4, 4096, 50, 1, 64, 16), (4, 4096, 48, 1, 64, 128),
+               (1, 32768, 50, 1, 64, 16), (2, 1, 50, 1, 64, 16),
+               (2, 300, 8, 2, 32, 64), (1, 200, 6, 3, 36, 20)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_chunk_plan_covers_every_chunk_and_head_once(shape):
+    Bsz, S, H, G, P, N = shape
+    plan = chunk_plan(*shape)
+    nc, per, tiles = plan["chunks"], plan["heads_per_block"], plan["head_tiles"]
+    assert nc * CHUNK >= S > (nc - 1) * CHUNK
+    assert per == HEADS_PER_BLOCK
+    Hg = H // G
+    seen = np.zeros((Bsz, nc, H), np.int64)
+    for z in range(Bsz * G):       # the output pass's grid, as the kernel walks it
+        b, g = divmod(z, G)
+        for ht in range(tiles):
+            h0, nh = g * Hg + ht * per, min(per, Hg - ht * per)
+            assert nh >= 1
+            seen[b, :, h0:h0 + nh] += 1
+    assert (seen == 1).all()
+    P16, N16 = plan["scratch"][3:]
+    assert plan["scratch"][:3] == (Bsz, nc, H) == plan["decay"]
+    assert P16 % 16 == 0 and N16 % 16 == 0 and P <= P16 < P + 16 and N <= N16 < N + 16
+
+
+def _bf16(a):
+    """Round float32 values to bfloat16 (nearest even) and back."""
+    return torch.as_tensor(np.ascontiguousarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _split(a):
+    """A float32 operand as the kernel feeds it: two bfloat16 terms."""
+    hi = _bf16(a)
+    return hi, _bf16(a - hi)
+
+
+def _emulate_kernel(x, dt, a, Bm, Cm):
+    """numpy mirror of ``csrc/ssd_chunk.cu``'s bfloat16 path, pass by pass:
+    chunk states from zero with wk o x in two bf16 terms; the state pass
+    writing each incoming state as [8 x hi | 8 x lo] groups in the slot of
+    its float32 entries; the output over ``chunk_plan``'s head tiles with
+    C B^T once per tile, W in two terms and C s_in^T as C with each group
+    of 8 columns repeated against that layout. Decays are exp2 of
+    log2-scaled sums <= 0, split at each k tile's last row below the
+    diagonal tile. Products accumulate in float64 (the tensor cores'
+    float32 sums differ only in rounding)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    Hg = H // G
+    plan = chunk_plan(Bsz, S, H, G, P, N)
+    nc, per, tiles = plan["chunks"], plan["heads_per_block"], plan["head_tiles"]
+    _, _, _, P16, N16 = plan["scratch"]
+    log2e = np.float32(1.4426950408889634)
+
+    def tile(t, b, t0, rows, cols, g=None, h=None):
+        out = np.zeros((CHUNK, cols), np.float64)
+        v = t[b, t0:t0 + rows, g if h is None else h]
+        out[:rows, :v.shape[-1]] = v
+        return out
+
+    def cumsum2(b, t0, rows, h):
+        d = np.zeros(CHUNK, np.float32)
+        d[:rows] = dt[b, t0:t0 + rows, h]
+        return np.cumsum(d * np.float32(a[h])) * log2e, d
+
+    scratch = np.zeros(plan["scratch"], np.float64)
+    decay = np.zeros(plan["decay"], np.float64)
+    for b in range(Bsz):                                   # pass 1
+        for c in range(nc):
+            t0 = c * CHUNK
+            rows = min(CHUNK, S - t0)
+            for h in range(H):
+                cum2, d = cumsum2(b, t0, rows, h)
+                wk = d * np.exp2(cum2[-1] - cum2)
+                hi, lo = _split(tile(x, b, t0, rows, P16, h=h) * wk[:, None])
+                bt = tile(Bm, b, t0, rows, N16, g=h // Hg)
+                scratch[b, c, h] = hi.T.astype(np.float64) @ bt + lo.T.astype(np.float64) @ bt
+                decay[b, c, h] = np.exp2(cum2[-1])
+    s_in = np.zeros((Bsz, nc, H, P16, 2 * N16))              # pass 2
+    state = np.zeros((Bsz, H, P16, N16))
+    for b in range(Bsz):
+        for h in range(H):
+            s = np.zeros((P16, N16), np.float32)
+            for c in range(nc):
+                hi, lo = _split(s)
+                for q in range(N16 // 8):
+                    s_in[b, c, h, :, 16 * q:16 * q + 8] = hi[:, 8 * q:8 * q + 8]
+                    s_in[b, c, h, :, 16 * q + 8:16 * q + 16] = lo[:, 8 * q:8 * q + 8]
+                s = (np.float32(decay[b, c, h]) * s + scratch[b, c, h]).astype(np.float32)
+            state[b, h] = s
+    y = np.zeros((Bsz, S, H, P), np.float32)                # pass 3
+    low = np.tril(np.ones((CHUNK, CHUNK), bool))
+    tile_of = np.arange(CHUNK) // 16
+    for z in range(Bsz * G):
+        b, g = divmod(z, G)
+        for c in range(nc):
+            t0 = c * CHUNK
+            rows = min(CHUNK, S - t0)
+            ct = tile(Cm, b, t0, rows, N16, g=g)
+            scores = ct @ tile(Bm, b, t0, rows, N16, g=g).T
+            c_rep = np.repeat(ct.reshape(CHUNK, N16 // 8, 1, 8), 2, axis=2).reshape(CHUNK, 2 * N16)
+            for ht in range(tiles):
+                for h in range(g * Hg + ht * per, g * Hg + min(Hg, (ht + 1) * per)):
+                    cum2, d = cumsum2(b, t0, rows, h)
+                    # L o dt: on a diagonal 16 x 16 tile exp2(c_i - c_j) dt_j;
+                    # below it exp2(c_i - c_r) (exp2(c_r - c_j) dt_j), r the
+                    # k tile's last row
+                    cr = cum2[(np.arange(CHUNK) // 16) * 16 + 15]
+                    u = np.exp2(np.minimum(cum2[:, None] - cr[None, :], 0.0))
+                    v = np.exp2(cr - cum2) * d
+                    diff = np.where(low, cum2[:, None] - cum2[None, :], 0.0)
+                    on_tile = low & (tile_of[:, None] == tile_of[None, :])
+                    below = tile_of[:, None] > tile_of[None, :]
+                    dec = np.where(below, u * v[None, :],
+                                   np.where(on_tile, np.exp2(diff) * d[None, :], 0.0))
+                    hi, lo = _split(scores * dec)
+                    xt = tile(x, b, t0, rows, P16, h=h)
+                    acc = hi.astype(np.float64) @ xt + lo.astype(np.float64) @ xt
+                    if c > 0:
+                        acc += np.exp2(cum2)[:, None] * (c_rep @ s_in[b, c, h].T)
+                    y[b, t0:t0 + rows, h] = acc[:rows, :P]
+    return _bf16(y), state[:, :, :P, :N].astype(np.float32)
+
+
+EMULATE_CASES = [  # (name, Bsz, S, H, G, P, N, dt_scale)
+    ("s1", 2, 1, 4, 1, 16, 16, 1.0),
+    ("s129_n128", 1, 129, 3, 1, 16, 128, 1.0),
+    ("s300_two_groups", 2, 300, 4, 2, 16, 32, 1.0),
+    ("p36_n20_three_groups", 1, 200, 6, 3, 36, 20, 1.0),
+    ("steep_decay", 1, 260, 4, 1, 16, 16, 10.0),
+]
+
+
+@pytest.mark.parametrize("case", EMULATE_CASES, ids=[c[0] for c in EMULATE_CASES])
+def test_kernel_mirror_matches_the_plain_version(case):
+    """The mirror on bfloat16 inputs against ``ssd_chunk_ref`` on the same
+    values: y within the bf16 tolerance (the kernel's output is bf16), the
+    final state within SSD_TOL of its largest entry (as on the card)."""
+    _, Bsz, S, H, G, P, N, dt_scale = case
+    x, dt, a, Bm, Cm = _batched(Bsz, S, H, G, P, N, seed=S, dt_scale=dt_scale)
+    x, Bm, Cm = _bf16(x), _bf16(Bm), _bf16(Cm)
+    y, st = _emulate_kernel(x, dt, a, Bm, Cm)
+    wy, wst = ssd_chunk_ref(*map(torch.as_tensor, (x, dt, a, Bm, Cm)))
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    np.testing.assert_allclose(y, wy.numpy(), rtol=2e-2, atol=2e-2)
+    scale = np.abs(wst.numpy()).max()
+    assert np.abs(st - wst.numpy()).max() <= 1e-3 * scale
