@@ -4,9 +4,9 @@ Each ``*.cu`` source under ``kernels/*/csrc/`` exposes a plain C interface
 and is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, which the kernel's wrapper loads with ``ctypes``. Builds happen at
 first use, from the sources in the checkout, into ``kernels/_build/``
-(listed in ``.gitignore``); the library name carries a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads the
-library built before. ``build_all`` starts one ``nvcc`` per source at once.
+(listed in ``.gitignore``); the library name carries a hash of the source,
+the ``*.cuh`` headers beside it and the flags, so an edited source or
+header rebuilds and an unchanged one loads the library built before. ``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -46,8 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where the library built from ``src`` lives (keyed by content)."""
+    """Where the library built from ``src`` lives (keyed by the content of
+    the source and of the headers in its directory)."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -17,7 +17,9 @@ from repro_torch.kernels.temporal_attention.ops import (
 )
 from repro_torch.kernels.temporal_attention.ref import (
     fused_recency_attention_ref,
+    fused_temporal_layer_bwd_factored_ref,
     fused_temporal_layer_bwd_ref,
+    fused_temporal_layer_factored_ref,
     fused_temporal_layer_ref,
     temporal_attention_ref,
 )
@@ -28,8 +30,10 @@ __all__ = [
     "fused_recency_attention_kernel",
     "fused_recency_attention_ref",
     "fused_temporal_layer",
+    "fused_temporal_layer_bwd_factored_ref",
     "fused_temporal_layer_bwd_kernel",
     "fused_temporal_layer_bwd_ref",
+    "fused_temporal_layer_factored_ref",
     "fused_temporal_layer_kernel",
     "fused_temporal_layer_ref",
     "reset_launches",

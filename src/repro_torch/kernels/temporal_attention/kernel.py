@@ -1,25 +1,40 @@
 """ctypes bindings and wrappers of the fused temporal layer CUDA kernels.
 
 ``csrc/fused_temporal_layer.cu`` replaces the TPU kernel
-``repro.kernels.temporal_attention.kernel.fused_temporal_layer_kernel``:
-one block per seed gathers the seed's packed buffer row, folds the Bochner
-time bias and the edge-feature bias into the K neighbor keys/values in
-shared memory, and runs the masked softmax attention. It is bounded by the
-float32 bias products on the CUDA cores; the source's head comment says
-what the design does about that.
+``repro.kernels.temporal_attention.kernel.fused_temporal_layer_kernel``
+(K1): the fused neighbor gather, Bochner time and edge-feature bias folds
+and masked softmax attention over the packed recency buffer.
+``csrc/fused_temporal_layer_bwd.cu`` replaces its backward
+``fused_temporal_layer_bwd_kernel`` (K2), every gradient of the layer.
 
-``fused_temporal_layer_kernel`` is its wrapper; ``fused_recency_attention_kernel``
-(the ids-only TPU surface, ``kernel.py:746`` of the reference) runs the same
-CUDA kernel with both bias groups off. Each wrapper checks device, dtype,
-shape and contiguity, allocates its output with ``torch.empty``, launches
-on the current stream, raises on a CUDA error, and adds one to its entry in
-``LAUNCHES`` per launch.
+Both run the factored form: with a slot's features x_j = [phi_j ; e_j]
+(X = d_time + d_edge wide), the bias groups factor per seed, since
+q . (x_j W_k) = (W_k q) . x_j and sum_j p_j x_j W_v = (sum_j p_j x_j) W_v.
+So each weight matrix is crossed once per seed, by blocks that hold one
+head's weight block in shared memory and run tiles of 8 seeds through it;
+a slot pass runs one block per seed over O(H (D + X)) work a slot, its
+slots' rows staged in shared memory 16 slots at a time; and the backward
+reduces the weight gradients over S rows of per-seed sums instead of
+S * K slot rows. K1 is three device launches (project, slots,
+back-project; the slot pass alone with both bias groups off), K2 five
+(project and zeroing, slots in two passes, back-project, weight-gradient
+partials over seed ranges, their fixed-order sums). The bound of both is
+bytes: ~0.0091 ms for K1 at S = 4,400 and ~0.0045 ms for K2 at S = 600 on
+an H100 (``chip_smoke.py::layer_bound`` and ``layer_bwd_bound``); their
+measured times are in PERF.md. The sources' head comments give the design
+and its numerics; ``tile_plan`` and ``workspace_bytes`` mirror their seed
+tiling and workspace arithmetic in Python.
 
-``csrc/fused_temporal_layer_bwd.cu`` replaces the TPU backward kernel
-``fused_temporal_layer_bwd_kernel``: it recomputes the attention per seed
-and returns every gradient of the layer (``fused_temporal_layer_bwd_kernel``
-here). The wrappers take no part in autograd themselves:
-``ops._FusedLayerFn`` pairs the two into one differentiable call.
+``fused_temporal_layer_kernel`` is K1's wrapper;
+``fused_recency_attention_kernel`` (the ids-only TPU surface,
+``kernel.py:746`` of the reference) runs the same CUDA code with both bias
+groups off. ``fused_temporal_layer_bwd_kernel`` is K2's. Each wrapper
+checks device, dtype, shape and contiguity, allocates its output and
+workspace with ``torch.empty``, launches on the current stream, raises on
+a CUDA error, and adds one to its entry in ``LAUNCHES`` per call, however
+many device launches the call makes. The wrappers take no part in autograd
+themselves: ``ops._FusedLayerFn`` pairs the two into one differentiable
+call.
 
 ``csrc/temporal_attention.cu`` replaces the TPU kernel
 ``temporal_attention_kernel`` (``kernel.py:100`` of the reference): masked
@@ -62,7 +77,9 @@ def _library():
 
         lib = _build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_temporal_layer_fwd.argtypes = [p] * 14 + [i] * 6 + [
+        lib.fused_temporal_layer_fwd_workspace.argtypes = [i] * 6
+        lib.fused_temporal_layer_fwd_workspace.restype = ctypes.c_size_t
+        lib.fused_temporal_layer_fwd.argtypes = [p] * 15 + [i] * 6 + [
             ctypes.c_float, p]
         lib.fused_temporal_layer_fwd.restype = i
         lib.fused_temporal_layer_error_string.argtypes = [i]
@@ -103,6 +120,45 @@ def _ta_library():
         lib.temporal_attention_error_string.restype = ctypes.c_char_p
         _ta_lib = lib
     return _ta_lib
+
+
+# The sources' tile arithmetic (fused_temporal_layer.cuh and
+# fused_temporal_layer_bwd.cu): the projections take the seeds in tiles of
+# 8; the backward's weight gradients split the S seeds into at most 32
+# ranges of at least 64 seeds.
+TILE_SEEDS = 8
+MAX_SPLITS = 32
+MIN_SPLIT_ROWS = 64
+
+
+def tile_plan(S: int) -> dict:
+    """The seed tiling of the kernels for S seeds, as the CUDA sources
+    compute it: ``seed_tiles`` tiles of ``TILE_SEEDS`` seeds in the
+    projections (the last one ragged; a block takes every grid-th tile);
+    ``splits`` ranges of ``split_rows`` seeds (the last one ragged) in the
+    backward's weight gradients, whose partials add up in range order. A
+    function of S alone, so the order of every sum is fixed by S."""
+    if S <= 0:
+        return {"seed_tiles": 0, "splits": 0, "split_rows": MIN_SPLIT_ROWS}
+    rows = max(-(-S // MAX_SPLITS), MIN_SPLIT_ROWS)
+    return {"seed_tiles": -(-S // TILE_SEEDS), "splits": -(-S // rows),
+            "split_rows": rows}
+
+
+def workspace_bytes(S: int, H: int, D: int, d_time: int, d_edge: int, *,
+                    backward: bool) -> int:
+    """Bytes of the workspace a call allocates, as the sources'
+    ``fused_temporal_layer{,_bwd}_workspace`` compute them. Forward: U and
+    Z, (S, H, X) float32 each. Backward: U_k, U_v, A_k, A_v (S, H, X) each,
+    the per-seed dtime partials (S, 2 d_time), the weight-gradient partials
+    (splits, 2, X, H D) and the dtime partials (splits, 2 d_time)."""
+    S = max(S, 0)
+    X = d_time + d_edge
+    if not backward:
+        return 4 * 2 * S * H * X
+    n = tile_plan(S)["splits"]
+    return 4 * (4 * S * H * X + 2 * S * d_time + 2 * n * X * H * D
+                + 2 * n * d_time)
 
 
 def _check(t, name, dtype, shape, device):
@@ -165,6 +221,8 @@ def _launch(q, k_table, v_table, seeds, seed_times, buf, time_w, time_b,
     dev = q.device
     out = torch.empty((S, H, D), dtype=torch.float32, device=dev)
     lib = _library()
+    nbytes = lib.fused_temporal_layer_fwd_workspace(S, H, D, K, d_time, d_edge)
+    work = torch.empty((nbytes // 4,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_temporal_layer_fwd(
@@ -172,8 +230,9 @@ def _launch(q, k_table, v_table, seeds, seed_times, buf, time_w, time_b,
             _ptr(seed_times) if d_time else None, _ptr(buf),
             _ptr(time_w), _ptr(time_b), _ptr(wt_k), _ptr(wt_v),
             _ptr(edge_feats) if d_edge else None, _ptr(we_k), _ptr(we_v),
-            _ptr(out), S, H, D, K, d_time, d_edge,
-            float(scale if scale is not None else 1.0 / math.sqrt(D)), stream)
+            _ptr(out), _ptr(work) if nbytes else None, S, H, D, K, d_time,
+            d_edge, float(scale if scale is not None else 1.0 / math.sqrt(D)),
+            stream)
     if err:
         msg = lib.fused_temporal_layer_error_string(err).decode()
         raise RuntimeError(f"fused_temporal_layer launch failed: {msg} ({err})")
@@ -228,8 +287,8 @@ def fused_temporal_layer_bwd_kernel(
     ``we_k``/``we_v`` (d_edge, H*D). ``seeds``, ``seed_times``, ``buf`` and
     ``edge_feats`` are not differentiable. The table gradients are summed
     with float atomics, so their last bits vary from run to run; the other
-    gradients are deterministic. The kernel's transient workspace is a
-    ``torch.empty`` freed on return.
+    gradients are deterministic (fixed-order sums). The kernel's transient
+    workspace (``workspace_bytes``) is a ``torch.empty`` freed on return.
     """
     S, H, D, N, K, d_time, d_edge = _check_operands(
         q, k_table, v_table, seeds, seed_times, buf, time_w, time_b, wt_k,

@@ -3,10 +3,13 @@
 Inputs come from a numpy seed and go through both packages: the JAX
 ``fused_temporal_layer`` in ``mode="interpret"`` (the Pallas kernel body on
 the CPU, as ``tests/kernels`` runs it) and in ``mode="ref"``, and the port's
-``ops.fused_temporal_layer`` on CPU tensors (its plain version). Tolerance
-f32 ``rtol=atol=2e-5`` (``tests/kernels/harness.py``). The CUDA kernel
-itself runs only on the card: ``chip_smoke.py`` holds it against the plain
-version there.
+``ops.fused_temporal_layer`` on CPU tensors (its plain version), and the
+factored plain versions (the CUDA kernels' decomposition: per-seed
+projections, the slot pass, back-projection, weight gradients over S).
+Tolerance f32 ``rtol=atol=2e-5`` (``tests/kernels/harness.py``). The CUDA
+kernels themselves run only on the card: ``chip_smoke.py`` holds them
+against the plain versions there. ``tile_plan`` (the kernels' grid, mirrored
+in Python) is checked here.
 """
 
 from __future__ import annotations
@@ -22,23 +25,30 @@ from repro_torch.kernels.temporal_attention import (
     fused_recency_attention,
     fused_recency_attention_kernel,
     fused_temporal_layer,
+    fused_temporal_layer_bwd_factored_ref,
+    fused_temporal_layer_factored_ref,
     fused_temporal_layer_kernel,
 )
+from repro_torch.kernels.temporal_attention.kernel import tile_plan
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 def _inputs(seed, S, K, H, D, N, d_time, d_edge, E=60, neg_seeds=0,
-            empty_rows=0, all_masked=False, dup_ids=False):
+            empty_rows=0, all_masked=False, dup_ids=False, wiki_times=False):
     """Numpy operands: buffer rows with -1 slots, times before the seeds',
-    featureless (-1) edge ids; glorot-magnitude weights."""
+    featureless (-1) edge ids; glorot-magnitude weights. ``wiki_times``:
+    times on wikipedia's scale (seeds near 2.6e6 s, slots from 0), so dt
+    reaches ~2.6e6 and dtheta * dt stresses the time_w gradient."""
     rng = np.random.default_rng(seed)
     f32 = lambda *s, scale=0.25: (rng.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
     seeds = rng.integers(0, N, S).astype(np.int32)
     if neg_seeds:
         seeds[rng.choice(S, neg_seeds, replace=False)] = -1
+    t_slot, t_seed = ((2_500_000, (2_500_000, 2_600_000)) if wiki_times
+                      else (900, (900, 1000)))
     buf = np.stack([rng.integers(-1, N, (N + 1, K)),
-                    rng.integers(0, 900, (N + 1, K)),
+                    rng.integers(0, t_slot, (N + 1, K)),
                     rng.integers(-1, E, (N + 1, K))], -1).astype(np.int32)
     buf[N] = (-1, 0, -1)
     for r in seeds[:empty_rows]:
@@ -48,10 +58,11 @@ def _inputs(seed, S, K, H, D, N, d_time, d_edge, E=60, neg_seeds=0,
     if all_masked:
         buf[..., 0] = -1
     args = dict(q=f32(S, H, D), k_table=f32(N, H, D), v_table=f32(N, H, D),
-                seeds=seeds, seed_times=rng.integers(900, 1000, S).astype(np.int32),
+                seeds=seeds, seed_times=rng.integers(*t_seed, S).astype(np.int32),
                 buf=buf)
     if d_time:
-        args.update(time_w=f32(d_time, scale=0.1), time_b=f32(d_time, scale=0.1),
+        args.update(time_w=f32(d_time, scale=0.1),
+                    time_b=f32(d_time, scale=0.0 if wiki_times else 0.1),
                     wt_k=f32(d_time, H * D), wt_v=f32(d_time, H * D))
     if d_edge:
         args.update(edge_feats=f32(E, d_edge, scale=1.0),
@@ -76,6 +87,9 @@ CASES = {
     "s_not_128": dict(S=131, K=3, H=2, D=4, N=40, d_time=6, d_edge=5),
     "quickstart_widths": dict(S=12, K=10, H=2, D=50, N=30, d_time=100,
                               d_edge=172),
+    "k20": dict(S=24, K=20, H=2, D=8, N=30, d_time=12, d_edge=10),
+    "wiki_times": dict(S=24, K=6, H=2, D=8, N=30, d_time=12, d_edge=10,
+                       wiki_times=True),
 }
 
 
@@ -94,10 +108,13 @@ def test_fused_temporal_layer_matches_jax(case, jax_mode):
     want = np.asarray(jax.jit(lambda a: jops.fused_temporal_layer(
         **a, block_s=16, mode=jax_mode))(_jax(args)))
     got = fused_temporal_layer(**_torch(args), mode="auto")
+    factored = fused_temporal_layer_factored_ref(**_torch(args))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(factored.numpy(), want, **TOL)
     if case in ("neg_seeds", "all_masked"):
         zero = args["seeds"] < 0 if case == "neg_seeds" else slice(None)
         assert (got.numpy()[zero] == 0).all()  # exact zeros, not just small
+        assert (factored.numpy()[zero] == 0).all()
 
 
 @pytest.mark.parametrize("jax_mode", ["interpret", "ref"])
@@ -153,7 +170,8 @@ def _assert_grad_close(got, want, name):
 DIFF = ("q", "k_table", "v_table", "time_w", "time_b", "wt_k", "wt_v",
         "we_k", "we_v")
 BWD_CASES = ("time_edge", "neg_seeds", "empty_rows", "all_masked", "dup_ids",
-             "time_only", "edge_only", "no_groups", "quickstart_widths")
+             "time_only", "edge_only", "no_groups", "quickstart_widths", "k1",
+             "s_not_128", "k20", "wiki_times")
 
 
 def _cotangent(args):
@@ -163,9 +181,10 @@ def _cotangent(args):
 
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_fused_temporal_layer_bwd_matches_jax(case):
-    """The port's plain backward (``fused_temporal_layer_bwd_ref``) and the
-    plain autograd of ``fused_temporal_layer`` against the JAX backward
-    kernel in interpret mode and ``jax.vjp`` of the JAX ref path, over every
+    """The port's plain backward (``fused_temporal_layer_bwd_ref``), its
+    factored form (``fused_temporal_layer_bwd_factored_ref``) and the plain
+    autograd of ``fused_temporal_layer`` against the JAX backward kernel in
+    interpret mode and ``jax.vjp`` of the JAX ref path, over every
     differentiable operand."""
     from repro.kernels.temporal_attention.kernel import (
         fused_temporal_layer_bwd_kernel as jax_bwd_kernel,
@@ -188,21 +207,28 @@ def test_fused_temporal_layer_bwd_matches_jax(case):
     (want_ref,) = vjp(jnp.asarray(g))
 
     got_ref = fused_temporal_layer_bwd_ref(torch.from_numpy(g), **_torch(args))
+    got_fac = fused_temporal_layer_bwd_factored_ref(torch.from_numpy(g),
+                                                    **_torch(args))
     leaves = {n: torch.from_numpy(args[n]).requires_grad_(True) for n in names}
     out = fused_temporal_layer(**{**_torch(args), **leaves}, mode="auto")
     out.backward(torch.from_numpy(g))
 
-    assert sorted(got_ref) == sorted(names) == sorted(want_kernel)
+    assert sorted(got_ref) == sorted(got_fac) == sorted(names) == sorted(want_kernel)
     for n in names:
         k = np.asarray(want_kernel[n])
         r = np.asarray(want_ref[n])
         _assert_grad_close(got_ref[n].numpy(), k, n)
+        _assert_grad_close(got_fac[n].numpy(), k, n)
+        _assert_grad_close(got_fac[n].numpy().reshape(r.shape), r, n)
         _assert_grad_close(leaves[n].grad.numpy(), r, n)
         assert tuple(got_ref[n].shape) == tuple(k.shape), n  # kernel layout
+        assert tuple(got_fac[n].shape) == tuple(k.shape), n
     if case == "neg_seeds":
         assert (got_ref["q"].numpy()[args["seeds"] < 0] == 0).all()
+        assert (got_fac["q"].numpy()[args["seeds"] < 0] == 0).all()
     if case == "all_masked":
         assert all((v == 0).all() for v in got_ref.values())
+        assert all((v == 0).all() for v in got_fac.values())
 
 
 @pytest.mark.parametrize("case", ["time_edge", "dup_ids"])
@@ -254,3 +280,25 @@ def test_backward_kernel_refuses_cpu_tensors():
     args = _torch(_inputs(0, **CASES["time_edge"]))
     with pytest.raises(ValueError, match="CUDA"):
         fused_temporal_layer_bwd_kernel(torch.zeros_like(args["q"]), **args)
+
+
+@pytest.mark.parametrize("S", [0, 1, 7, 8, 9, 600, 2047, 2048, 4400, 4401])
+def test_tile_plan_covers_every_seed_once(S):
+    """The kernels' seed tiling as a function of S alone: the projections'
+    tiles of 8 seeds and the backward's weight-gradient seed ranges cover
+    the seeds exactly once, in order, the last tile or range ragged; at
+    most 32 ranges of at least 64 seeds."""
+    plan = tile_plan(S)
+    tiles, n, rows = plan["seed_tiles"], plan["splits"], plan["split_rows"]
+    if S == 0:
+        assert tiles == n == 0
+        return
+    assert (tiles - 1) * 8 < S <= tiles * 8
+    assert rows >= 64 and 1 <= n <= 32
+    ranges = [(i * rows, min(S, (i + 1) * rows)) for i in range(n)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == S
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert tile_plan(S) == plan
+    assert {600: (75, 10, 64), 4400: (550, 32, 138)}.get(S, (tiles, n, rows)) == (
+        tiles, n, rows)
