@@ -60,24 +60,31 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    T-GCN ``evaluate("val")`` against their plain versions.
 
 8. ``classic_kernels`` — K3 (masked seed -> K-neighbor attention over
-   pre-gathered keys and values, the classic path's core) against its plain
-   version at the classic path's shapes (train S = 600 and eval S = 4,400,
-   K = 10, H = 2, D = 50), a second launch bitwise, times of K3, its plain
-   version and ``scaled_dot_product_attention`` over the rows with a valid
-   slot, the bound; the gradient through ``_TemporalAttentionFn`` against
-   plain autograd; degenerate inputs (every slot masked, rows without a
-   valid slot, one valid slot, K = 1 and 300, S = 1 and 0, D = 33 and 128,
-   bfloat16).
+   pre-gathered keys and values, the classic path's core) and K3b (its
+   gradient, one launch: dq, dk, dv) against their plain versions at the
+   classic path's shapes (train S = 600 and eval S = 4,400, K = 10, H = 2,
+   D = 50): K3 against ``temporal_attention_ref``, K3b gradient by gradient
+   against plain autograd and ``temporal_attention_bwd_ref``, exact zeros
+   on masked slots and empty rows, a second launch of each bitwise, each
+   call's launch plan equal to the CUDA source's; times of both, their
+   plain versions and ``scaled_dot_product_attention`` (forward, and
+   forward + backward for K3b) over the rows with a valid slot, device µs,
+   the bounds and shares; the gradient through ``_TemporalAttentionFn``
+   (K3b launched) against plain autograd; degenerate inputs through both
+   (every slot masked, rows without a valid slot, one valid slot, K = 1,
+   17 and 300 with rows whose first chunk is all masked, S = 1 and 0, D =
+   33 and 128, an offset view on the scalar path, bfloat16 at D = 50 and 64).
 9. ``host``    — ``examples/quickstart.py``'s experiment as written (the host
    ``RecencySampler``, the classic path) at full scale:
-   ``evaluate("val")`` through K3 (one launch per val batch) and with the
-   plain version; the first train steps held step by step; one
-   ``train_epoch()`` through K3 (one launch per train batch) and the plain
-   epoch from the same start (the sampler's state after both bit-equal);
-   the host and device samplers' neighborhoods bit-equal batch by batch.
+   ``evaluate("val")`` through K3 (one launch per val batch, no K3b) and
+   with the plain version; the first train steps held step by step (K3 and
+   K3b on each step's own inputs); one ``train_epoch()`` through K3 and K3b
+   (one launch each per train batch) and the plain epoch from the same
+   start (the sampler's state after both bit-equal); the host and device
+   samplers' neighborhoods bit-equal batch by batch.
 10. ``tgn``    — TGN at full width (``d_model``, ``d_memory``, ``d_time`` 100,
    2 heads, k = 10) on the device sampler (K1, K2) and on the host sampler
-   (K3): ``evaluate("val")`` against the plain version (MRR, memory and
+   (K3, K3b): ``evaluate("val")`` against the plain version (MRR, memory and
    ``last_update``), step parity with exactly-zero GRU gradients, one
    ``train_epoch()`` with its launch counts, a checkpoint round trip with
    the model state.
@@ -120,8 +127,8 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
 and per scored val batch of the hooks, the model step and the metric, each
 closed by a device synchronise), ``trace`` (``torch.profiler`` over scored
 val batches: device busy time, idle share, device time by kernel name,
-K1's and K2's device ms and share of the busy time, as in every train
-window),
+K1's, K2's, K3's and K3b's device ms and share of the busy time, as in
+every train window),
 ``loader`` (ms per batch with the hooks in the calling thread and in
 ``PrefetchLoader``'s thread), ``spread`` (loss and val MRR of several
 free-running kernel and perturbed plain epochs), ``train_profile`` (per
@@ -140,8 +147,8 @@ copy kernels and the largest copies by shape). ``build`` and
 ``lm_kernels`` report ``profiler_clock`` (what the profiler keeps of two
 known launches, early and late in the process). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
-K2, K3, K4, K5 and K6 with their launches on the main paths; K1w, off the path,
-beside them), the card's name and power limit as nvidia-smi reports them,
+K2, K3, K3b, K4, K5 and K6 with their launches on the main paths; K1w, off
+the path, beside them), the card's name and power limit as nvidia-smi reports them,
 and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
 """
@@ -256,6 +263,10 @@ SEG_SOURCE = "src/repro_torch/kernels/segment_reduce/csrc/segment_sum.cu"
 TPU_K4 = "src/repro/kernels/segment_reduce/kernel.py:47"
 TA_SOURCE = "src/repro_torch/kernels/temporal_attention/csrc/temporal_attention.cu"
 TPU_K3 = "src/repro/kernels/temporal_attention/kernel.py:100"
+TA_BWD_SOURCE = "src/repro_torch/kernels/temporal_attention/csrc/temporal_attention_bwd.cu"
+# K3b has no TPU kernel: the JAX package takes XLA's gradient of K3's oracle.
+TPU_K3B = ("src/repro/kernels/temporal_attention/ref.py:10 (no TPU kernel: "
+           "XLA's gradient of temporal_attention_ref)")
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TPU_K5 = "src/repro/kernels/flash_attention/kernel.py:77"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
@@ -755,8 +766,8 @@ def step_parity(torch, pipe, n_steps: int):
     path K1 against the plain forward on the step's own inputs and K2
     against the plain backward on the step's own cotangent (taken from the
     autograd graph); on the classic path K3 against its plain version on the
-    step's own inputs and ``_TemporalAttentionFn``'s gradients on the step's
-    own cotangent against plain autograd. A stateful model's GRU gradients
+    step's own inputs and K3b on the step's own cotangent against plain
+    autograd. A stateful model's GRU gradients
     are held to exact zeros on both runs (no gradient reaches the memory
     update). The whole-model gradients are compared too, but only reported:
     the merge and decoder MLPs' ReLUs and the cancelling time_w sum turn a
@@ -794,11 +805,6 @@ def step_parity(torch, pipe, n_steps: int):
                   + [mask.contiguous()])
         return out
 
-    def k3_grads(args, g, mode):
-        leaves = [t.clone().requires_grad_(True) for t in args[:3]]
-        attention(*leaves, args[3], mode=mode).backward(g)
-        return {name: t.grad for name, t in zip("qkv", leaves)}
-
     worst = {"loss": 0.0, "k1_max_abs_err": 0.0, "k2_max_rel_err": 0.0,
              "k3_max_abs_err": 0.0, "k3_grad_max_abs_err": 0.0,
              "model_grad_rel": 0.0, "model_grad_name": None,
@@ -833,9 +839,10 @@ def step_parity(torch, pipe, n_steps: int):
                     a, g = seen.pop("attention"), seen.pop("attention_g")
                     err = compare(torch, ta.temporal_attention_kernel(*a),
                                   ta.temporal_attention_ref(*a), f"K3 train step {i}")
-                    got, want = k3_grads(a, g, "kernel"), k3_grads(a, g, "ref")
-                    gerr = max(compare(torch, got[n], want[n], f"K3 d{n} train step {i}")
-                               for n in "qkv")
+                    got = ta.temporal_attention_bwd_kernel(g, *a)
+                    want = plain_attention_grads(torch, g, *a)
+                    gerr = max(compare(torch, x, y, f"K3b d{n} train step {i}")
+                               for n, x, y in zip("qkv", got, want))
                     worst["k3_max_abs_err"] = max(worst["k3_max_abs_err"], err)
                     worst["k3_grad_max_abs_err"] = max(worst["k3_grad_max_abs_err"], gerr)
                 check(not seen, f"train step {i}: the kernel path ran no kernel")
@@ -1501,111 +1508,239 @@ def attention_bound(q, k, v, mask):
     return _bound(nbytes, slots * h * (4 * d + 5))
 
 
+def bwd_attention_bound(q, k, v, mask):
+    """Least time (ms) for one K3b call on these inputs: g, q and the mask
+    read once, each valid slot's key and value rows read once, dq and the
+    whole dk and dv (masked slots' zeros included) written once; per valid
+    slot and head its score and dp (4 D), the softmax and ds (10), its
+    share of dq (2 D), its dk and dv rows (2 D). Returns (bound_ms,
+    bound_by, bytes, flops)."""
+    S, h, d = q.shape
+    K = k.shape[1]
+    b, slots = q.element_size(), int(mask.sum())
+    nbytes = (3 * b * S * h * d + mask.numel() + 2 * b * slots * h * d
+              + 2 * b * S * K * h * d)
+    return _bound(nbytes, slots * h * (8 * d + 10))
+
+
+def plain_attention_grads(torch, g, q, k, v, m):
+    """K3's gradient by plain autograd through ``temporal_attention_ref``
+    (what the reference's XLA gradient is to its oracle)."""
+    from repro_torch.kernels.temporal_attention import temporal_attention_ref
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = temporal_attention_ref(*leaves, m)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def ta_plan_checked(torch, q, k, backward=False, aligned_with=()):
+    """``kernel.ta_plan`` for K3's (or K3b's) operands, held equal to the
+    plan the CUDA source computes (``temporal_attention_plan``)."""
+    import ctypes
+
+    from repro_torch.kernels.temporal_attention import kernel as tk
+
+    S, H, D = q.shape
+    K = k.shape[1]
+    aligned = tk._aligned(q, k, *aligned_with)
+    plan = tk.ta_plan(S, K, H, D, q.dtype, aligned, backward=backward)
+    out = (ctypes.c_longlong * 5)()
+    tk._ta_library().temporal_attention_plan(
+        K, H, D, tk._TA_DTYPES[q.dtype], int(plan["vector_bytes"] == 16),
+        int(backward), out)
+    want = [plan[n] for n in ("warps", "chunk", "vector_bytes", "warp_bytes", "block_bytes")]
+    check(list(out) == want, f"ta_plan {want} != the CUDA source's plan {list(out)} "
+                             f"(S={S} K={K} H={H} D={D} {q.dtype} backward={backward})")
+    check(tk._ta_vec(H, D, q, k, *aligned_with) == int(plan["vector_bytes"] == 16),
+          f"the wrapper's path differs from ta_plan's (S={S} K={K} H={H} D={D})")
+    return plan
+
+
 def k3_phase(torch):
-    """K3 (masked seed -> K-neighbor attention over pre-gathered k/v) against
-    its plain version on the card at the classic path's shapes (train S =
-    600 and eval S = 4,400 seeds, K = 10, H = 2, D = 50, float32), with a
-    second launch held bitwise to the first; times (CUDA events over
-    back-to-back calls, and the device time per call by ``torch.profiler``)
-    of K3, its plain version and ``scaled_dot_product_attention`` on (S', H, 1, D) x
-    (S', H, K, D) with the boolean mask over the S' rows that have a valid
-    slot (SDPA gives no zeros for a row without one, so those rows are left
-    out of its call). Then the gradient through ``_TemporalAttentionFn``
-    against plain autograd (exact zeros on masked slots and empty rows) and
-    the degenerate inputs: every slot masked (exact zeros), rows without a
-    valid slot, one valid slot, K = 1, K = 300, S = 1, S = 0 (no launch),
-    D = 33 and 128, and bfloat16 at both path shapes (tolerance BF16_TOL)."""
+    """K3 (masked seed -> K-neighbor attention over pre-gathered k/v) and
+    K3b (its gradient) against their plain versions on the card at the
+    classic path's shapes (train S = 600 and eval S = 4,400 seeds, K = 10,
+    H = 2, D = 50, float32), each with a second launch held bitwise to the
+    first: K3 against ``temporal_attention_ref``, K3b's dq, dk and dv
+    against plain autograd through it and against
+    ``temporal_attention_bwd_ref``, with exact zeros on masked slots and
+    rows without a valid slot; times (CUDA events over back-to-back calls,
+    and the device time per call by ``torch.profiler``) of each kernel, its
+    plain version and ``scaled_dot_product_attention`` (K3b: its forward and
+    backward) on (S', H, 1, D) x (S', H, K, D) with the boolean mask over the
+    S' rows that have a valid slot (SDPA gives no zeros for a row without
+    one, so those rows are left out of its call), beside the bounds
+    (``attention_bound``, ``bwd_attention_bound``). Then the gradient
+    through ``_TemporalAttentionFn`` against plain autograd, and the
+    degenerate inputs, each through both kernels: every slot masked (exact
+    zeros), rows without a valid slot, one valid slot, K = 1, K = 17 (two
+    chunks, with rows whose first chunk is all masked), K = 300, S = 1, S =
+    0 (no launch), D = 33 and 128, an offset view (the scalar path),
+    bfloat16 at both path shapes (tolerance BF16_TOL; the scalar path at D
+    = 50) and at D = 64 (the 16-byte path). Every call's launch plan is
+    held equal to the CUDA source's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.temporal_attention import (
         LAUNCHES,
         temporal_attention,
+        temporal_attention_bwd_kernel,
+        temporal_attention_bwd_ref,
         temporal_attention_kernel,
         temporal_attention_ref,
     )
+
+    def both(label, q, k, v, m, g, tol=ATOL):
+        """Both kernels on one input: errors, exact zeros, bitwise reruns."""
+        empty = ~m.any(-1)
+        plan = ta_plan_checked(torch, q, k, aligned_with=(v,))
+        ta_plan_checked(torch, q, k, backward=True, aligned_with=(v, g))
+        got = temporal_attention_kernel(q, k, v, m)
+        err = compare(torch, got, temporal_attention_ref(q, k, v, m), f"K3 {label}", tol)
+        check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
+        check(bool(torch.equal(temporal_attention_kernel(q, k, v, m), got)),
+              f"K3 {label}: a second launch gave other bits")
+        grads = temporal_attention_bwd_kernel(g, q, k, v, m)
+        plain = plain_attention_grads(torch, g, q, k, v, m)
+        formulas = temporal_attention_bwd_ref(g, q, k, v, m)
+        gerr = {}
+        for name, a, b, c in zip(("dq", "dk", "dv"), grads, plain, formulas):
+            check(a.dtype == q.dtype and a.shape == b.shape, f"K3b {label}: {name} "
+                                                             f"{a.dtype} {tuple(a.shape)}")
+            gerr[name] = compare(torch, a, b, f"K3b {label} {name} (plain autograd)", tol)
+            compare(torch, a, c, f"K3b {label} {name} (temporal_attention_bwd_ref)", tol)
+        dq, dk, dv = grads
+        check(bool((dq[empty] == 0).all()) and bool((dk[~m] == 0).all())
+              and bool((dv[~m] == 0).all()),
+              f"K3b {label}: masked slots or empty rows not exactly zero")
+        again = temporal_attention_bwd_kernel(g, q, k, v, m)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(again, grads)),
+              f"K3b {label}: a second launch gave other bits")
+        return dict(S=q.shape[0], K=k.shape[1], D=q.shape[2], dtype=str(q.dtype),
+                    empty_rows=int(empty.sum()), chunk=plan["chunk"],
+                    vector_bytes=plan["vector_bytes"], max_abs_err=err,
+                    grad_max_abs_err=gerr, rerun_bitwise_equal=True)
 
     gen = torch.Generator().manual_seed(3)
     results, cases = {}, []
     with torch.no_grad():
         for name, S in (("train", TRAIN_S), ("eval", EVAL_S)):
             q, k, v, m = attention_inputs(torch, gen, S)
-            got = temporal_attention_kernel(q, k, v, m)
-            err = compare(torch, got, temporal_attention_ref(q, k, v, m),
-                          f"K3 {name} S={S}")
-            again = temporal_attention_kernel(q, k, v, m)
-            check(bool(torch.equal(again, got)), f"K3 {name}: a second launch "
-                                                 f"gave other bits")
+            g = torch.randn((S, H, D), generator=gen).to(DEVICE)
+            r = both(f"{name} S={S}", q, k, v, m, g)
             live = m.any(-1)
             sq = q[live].unsqueeze(2).contiguous()                # (S', H, 1, D)
             sk = k[live].permute(0, 2, 1, 3).contiguous()         # (S', H, K, D)
             sv = v[live].permute(0, 2, 1, 3).contiguous()
             sm = m[live][:, None, None, :].contiguous()          # (S', 1, 1, K)
+            sg = g[live].unsqueeze(2).contiguous()
+            leaves = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
 
             def sdpa():
                 return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
 
+            def sdpa_fwd_bwd():
+                with torch.enable_grad():
+                    out = F.scaled_dot_product_attention(*leaves, attn_mask=sm)
+                    return torch.autograd.grad(out, leaves, sg)
+
+            got = temporal_attention_kernel(q, k, v, m)
             lib_diff = float((sdpa()[:, :, 0, :] - got[live]).abs().max())
             bound, by, nbytes, flops = attention_bound(q, k, v, m)
             kern = lambda: temporal_attention_kernel(q, k, v, m)  # noqa: E731
             plain = lambda: temporal_attention_ref(q, k, v, m)  # noqa: E731
-            results[f"K3_{name}"] = dict(
-                S=S, valid_slots=int(m.sum()), rows_without_valid_slot=int((~live).sum()),
-                max_abs_err=err, rerun_bitwise_equal=True,
-                ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 5),
-                library_ms=time_ms(torch, sdpa, 20), library_rows=int(live.sum()),
-                device_us=device_us_per_call(torch, kern),
-                plain_device_us=device_us_per_call(torch, plain),
-                library_device_us=device_us_per_call(torch, sdpa),
-                library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by,
-                bytes=nbytes, flops=flops,
-                bound_ms_every_slot=attention_bound(q, k, v, torch.ones_like(m))[0])
+            r.update(valid_slots=int(m.sum()), rows_without_valid_slot=int((~live).sum()),
+                     ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 5),
+                     library_ms=time_ms(torch, sdpa, 20), library_rows=int(live.sum()),
+                     device_us=device_us_per_call(torch, kern),
+                     plain_device_us=device_us_per_call(torch, plain),
+                     library_device_us=device_us_per_call(torch, sdpa),
+                     library_max_abs_diff=lib_diff, bound_ms=bound, bound_by=by,
+                     bytes=nbytes, flops=flops,
+                     bound_ms_every_slot=attention_bound(q, k, v, torch.ones_like(m))[0])
+            r["bound_share"] = bound / r["ms"]
+            r["bound_share_device"] = (1e3 * bound / r["device_us"]
+                                       if r["device_us"] else None)
+            results[f"K3_{name}"] = r
+            bound, by, nbytes, flops = bwd_attention_bound(q, k, v, m)
+            kern = lambda: temporal_attention_bwd_kernel(g, q, k, v, m)  # noqa: E731
+            plain = lambda: temporal_attention_bwd_ref(g, q, k, v, m)  # noqa: E731
+            autograd = lambda: plain_attention_grads(torch, g, q, k, v, m)  # noqa: E731
+            rb = dict(S=S, max_abs_err=max(r["grad_max_abs_err"].values()),
+                      errors=r["grad_max_abs_err"], rerun_bitwise_equal=True,
+                      ms=time_ms(torch, kern, 20), plain_ms=time_ms(torch, plain, 5),
+                      plain_autograd_ms=time_ms(torch, autograd, 5),
+                      library_ms=time_ms(torch, sdpa_fwd_bwd, 20),
+                      device_us=device_us_per_call(torch, kern),
+                      plain_device_us=device_us_per_call(torch, plain),
+                      plain_autograd_device_us=device_us_per_call(torch, autograd),
+                      library_device_us=device_us_per_call(torch, sdpa_fwd_bwd),
+                      bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+            rb["bound_share"] = bound / rb["ms"]
+            rb["bound_share_device"] = (1e3 * bound / rb["device_us"]
+                                        if rb["device_us"] else None)
+            results[f"K3b_{name}"] = rb
 
-        def case(label, S, zero=False, tol=ATOL, **kw):
+        def case(label, S, tol=ATOL, offset=False, **kw):
             q, k, v, m = attention_inputs(torch, gen, S, **kw)
             if label == "empty_rows":
                 m[::5] = False
-            got = temporal_attention_kernel(q, k, v, m)
-            err = compare(torch, got, temporal_attention_ref(q, k, v, m), f"K3 {label}", tol)
-            empty = ~m.any(-1)
-            check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
-            check(not zero or bool(empty.all()), f"K3 {label}: expected every row empty")
-            cases.append({"case": label, "S": S, "dtype": str(got.dtype),
-                          "empty_rows": int(empty.sum()), "max_abs_err": err})
+            if label.startswith("k17") or label == "k300":  # rows that start late
+                m[::2, :16] = False
+                m[::7] = False
+            g = torch.randn(q.shape, generator=gen).to(DEVICE, q.dtype)
+            if offset:  # contiguous views 4 bytes past an aligned start
+                q, k, v, g = (torch.empty(x.numel() + 1, dtype=x.dtype, device=DEVICE)[1:]
+                              .view(x.shape).copy_(x) for x in (q, k, v, g))
+            cases.append({"case": label, **both(label, q, k, v, m, g, tol)})
+            return cases[-1]
 
-        case("all_masked", 64, zero=True, mask="none")
+        zero = case("all_masked", 64, mask="none")
+        check(zero["empty_rows"] == 64, "K3 all_masked: expected every row empty")
         case("empty_rows", TRAIN_S)
         case("one_valid_slot", TRAIN_S, mask="one")
         case("k1", TRAIN_S, k=1)
+        c = case("k17", TRAIN_S, k=17)
+        check(c["chunk"] == 16, f"K3 k17: chunk {c['chunk']}, expected a split at 16")
         case("k300", 64, k=300)
         case("s1", 1)
-        case("d33", TRAIN_S, d=33)
+        c = case("d33", TRAIN_S, d=33)
+        check(c["vector_bytes"] == 4, "K3 d33: expected the scalar path")
         case("d128", TRAIN_S, d=128)
+        c = case("offset_view", TRAIN_S, offset=True)
+        check(c["vector_bytes"] == 4, "K3 offset_view: expected the scalar path")
         case("bf16_train", TRAIN_S, tol=BF16_TOL, dtype=torch.bfloat16)
         case("bf16_eval", EVAL_S, tol=BF16_TOL, dtype=torch.bfloat16)
+        c = case("bf16_d64", TRAIN_S, tol=BF16_TOL, dtype=torch.bfloat16, d=64)
+        check(c["vector_bytes"] == 16, "K3 bf16_d64: expected the 16-byte path")
         q, k, v, m = attention_inputs(torch, gen, 0)
-        before = LAUNCHES["temporal_attention"]
+        before = dict(LAUNCHES)
         out = temporal_attention_kernel(q, k, v, m)
-        check(tuple(out.shape) == (0, H, D) and LAUNCHES["temporal_attention"] == before,
-              "K3 S=0: wrong shape or a launch")
+        grads = temporal_attention_bwd_kernel(out, q, k, v, m)
+        check(tuple(out.shape) == (0, H, D) and LAUNCHES == before
+              and [tuple(x.shape) for x in grads] == [(0, H, D), (0, K, H, D), (0, K, H, D)],
+              "K3/K3b S=0: wrong shape or a launch")
         cases.append({"case": "s0", "S": 0, "launched": False})
 
-    # The gradient: K3 in the forward, the plain version's by recompute.
+    # The gradient through the Function: K3 forward, K3b backward.
     q, k, v, m = attention_inputs(torch, gen, TRAIN_S)
     m[::7] = False
     g = torch.randn((TRAIN_S, H, D), generator=gen).to(DEVICE)
-    grads = []
-    for mode in ("kernel", "ref"):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        temporal_attention(*leaves, m, mode=mode).backward(g)
-        grads.append([t.grad for t in leaves])
+    before = LAUNCHES["temporal_attention_bwd"]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    temporal_attention(*leaves, m, mode="kernel").backward(g)
+    check(LAUNCHES["temporal_attention_bwd"] == before + 1,
+          "K3 gradient: the Function's backward did not launch K3b")
     gerr = {}
-    for name, a, b in zip("qkv", *grads):
+    dq, dk, dv = (t.grad for t in leaves)
+    for name, a, b in zip("qkv", (dq, dk, dv), plain_attention_grads(torch, g, q, k, v, m)):
         gerr[f"d{name}"] = compare(torch, a, b, f"K3 gradient d{name}")
-    dq, dk, dv = grads[0]
     check(bool((dq[~m.any(-1)] == 0).all()) and bool((dk[~m] == 0).all())
           and bool((dv[~m] == 0).all()),
           "K3 gradient: masked slots or empty rows not exactly zero")
-    results["K3_grad"] = dict(S=TRAIN_S, max_abs_err=gerr, masked_exact_zero=True)
+    results["K3_grad"] = dict(S=TRAIN_S, max_abs_err=gerr, launched_k3b=True,
+                              masked_exact_zero=True)
     return results, cases
 
 
@@ -1652,10 +1787,10 @@ def host_phase(torch):
     """The quickstart as written, on the card: ``compile(device="cuda")``
     builds the host ``RecencySampler`` and the classic path (no packed
     buffer on the batch). ``evaluate("val")`` through K3 (one launch per val
-    batch, none of K1) and with the plain version (MRR within MRR_TOL, the
-    sampler's state bit-equal); the first train steps held step by step;
-    one ``train_epoch()`` through K3 (one launch per train batch; its
-    backward is the plain recompute) and the same epoch with the plain
+    batch, no other kernel) and with the plain version (MRR within MRR_TOL,
+    the sampler's state bit-equal); the first train steps held step by step;
+    one ``train_epoch()`` through K3 and K3b (one launch each per train
+    batch, no other kernel) and the same epoch with the plain
     version from the same start (the sampler's state after them bit-equal;
     loss and val MRR reported); last, the host-sampled and device-sampled
     pipelines' neighborhoods, batch by batch, bit-equal over the warm pass
@@ -1672,10 +1807,9 @@ def host_phase(torch):
     init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
 
     ev, state, _ = eval_run(torch, pipe, None)
-    check(ev["launches"]["temporal_attention"] == n_val
-          and ev["launches"]["fused_temporal_layer"] == 0,
-          f"host eval launched K3 {ev['launches']['temporal_attention']} times "
-          f"for {n_val} val batches (K1 {ev['launches']['fused_temporal_layer']})")
+    launched = {k: v for k, v in ev["launches"].items() if v}
+    check(launched == {"temporal_attention": n_val},
+          f"host eval launched {launched} for {n_val} val batches")
     ev_ref, state_ref, _ = eval_run(torch, pipe, "ref")
     check(sum(ev_ref["launches"].values()) == 0, "fused='ref' launched a kernel")
     check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
@@ -1692,11 +1826,9 @@ def host_phase(torch):
     restart()
     run = run_epoch(torch, pipe, None)
     state = pipe.manager.state_dict()
-    check(run["launches"]["temporal_attention"] == n_train
-          and run["launches"]["fused_temporal_layer"] == 0
-          and run["launches"]["fused_temporal_layer_bwd"] == 0,
-          f"host train epoch launched K3 {run['launches']['temporal_attention']} "
-          f"times for {n_train} batches")
+    launched = {k: v for k, v in run["launches"].items() if v}
+    check(launched == {"temporal_attention": n_train, "temporal_attention_bwd": n_train},
+          f"host train epoch launched {launched} for {n_train} batches")
     restart()
     plain = run_epoch(torch, pipe, "ref")
     check(sum(plain["launches"].values()) == 0, "fused='ref' launched a kernel")
@@ -1793,7 +1925,7 @@ def tgn_phase(torch, data):
     state and ``last_update`` bit-equal, the memory within ATOL/RTOL); the
     first train steps held step by step (GRU gradients exactly zero); one
     ``train_epoch()`` through the kernels (device: K1 and K2 once per train
-    batch; host: K3 once per batch) with val MRR after it; a checkpoint save
+    batch; host: K3 and K3b once per batch) with val MRR after it; a checkpoint save
     and restore on the card, bit-equal in parameters, optimizer, model state
     and sampler state."""
     import shutil
@@ -1828,7 +1960,8 @@ def tgn_phase(torch, data):
         run = run_epoch(torch, pipe, None)
         launched = {k: v for k, v in run["launches"].items() if v}
         want = ({"fused_temporal_layer": n_train, "fused_temporal_layer_bwd": n_train}
-                if on_device else {"temporal_attention": n_train})
+                if on_device else {"temporal_attention": n_train,
+                                   "temporal_attention_bwd": n_train})
         check(launched == want,
               f"TGN {label} train epoch launched {launched} for {n_train} batches")
         check(math.isfinite(run["loss"]), f"TGN {label} epoch loss {run['loss']}")
@@ -2202,14 +2335,16 @@ def device_window(prof, wall_us):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     layer = {label: sum(v for k, v in by_name.items()
                         if any(n in k for n in launches))
-             for label, launches in (("K1", K1_LAUNCHES), ("K2", K2_LAUNCHES))}
+             for label, launches in (("K1", K1_LAUNCHES), ("K2", K2_LAUNCHES),
+                                     ("K3", ("ta_fwd_kernel",)),
+                                     ("K3b", ("ta_bwd_kernel",)))}
     return {"device_events": len(dev),
             "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "device_ms_by_name": {k: v / 1e3 for k, v in top},
-            "fused_layer_device_ms": {k: v / 1e3 for k, v in layer.items()},
-            "fused_layer_busy_share": {k: v / busy if busy else None
-                                       for k, v in layer.items()}}
+            "kernel_device_ms": {k: v / 1e3 for k, v in layer.items()},
+            "kernel_busy_share": {k: v / busy if busy else None
+                                  for k, v in layer.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -3161,7 +3296,7 @@ def main() -> int:
 
     k1, k1w, k2 = results["K1_eval"], results["K1w_eval"], results["K2_train"]
     k1t, k1wt, k2e = results["K1_train"], results["K1w_train"], results["K2_eval"]
-    k3e = k3["K3_eval"]
+    k3e, k3t, k3b, k3be = k3["K3_eval"], k3["K3_train"], k3["K3b_train"], k3["K3b_eval"]
     k4 = seg["h_d64"]
     paths = {"eval": sl, "train": tr["kernels"], "host_eval": ho["eval"],
              "host_train": ho["kernels"], "tgn_device_eval": tg["device"]["eval"],
@@ -3170,7 +3305,7 @@ def main() -> int:
     by_path = {name: {p: r["launches"][name] for p, r in paths.items()
                       if r["launches"][name]}
                for name in ("fused_temporal_layer", "fused_temporal_layer_bwd",
-                            "temporal_attention")}
+                            "temporal_attention", "temporal_attention_bwd")}
     k5, k6 = lmk["K5_hymba"], lmk["K6_hymba"]
     lm_runs = {"hymba_prefill": lm["hymba-1.5b"]["launches"],
                "qwen3_prefill": lm["qwen3-0.6b"]["launches"],
@@ -3214,10 +3349,34 @@ def main() -> int:
         "source": TA_SOURCE, "replaces": TPU_K3,
         "launches": sum(by_path["temporal_attention"].values()),
         "launches_by_path": by_path["temporal_attention"],
-        "max_abs_err": max(k3["K3_train"]["max_abs_err"], k3e["max_abs_err"]),
+        "max_abs_err": max(k3t["max_abs_err"], k3e["max_abs_err"]),
         "ms": k3e["ms"], "plain_ms": k3e["plain_ms"],
         "bound_ms": k3e["bound_ms"], "bound_by": k3e["bound_by"],
         "library_ms": k3e["library_ms"], "shape": "S=4400 K=10 H=2 D=50",
+        "device_us": k3e["device_us"], "library_device_us": k3e["library_device_us"],
+        "bound_share": k3e["bound_share"], "bound_share_device": k3e["bound_share_device"],
+        "train": {k: k3t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "device_us", "library_device_us",
+                                       "bound_share", "bound_share_device")},
+    }, {
+        "name": "temporal_attention_bwd", "route": "cuda",
+        "source": TA_BWD_SOURCE, "replaces": TPU_K3B,
+        "launches": sum(by_path["temporal_attention_bwd"].values()),
+        "launches_by_path": by_path["temporal_attention_bwd"],
+        "max_abs_err": max(k3b["max_abs_err"], k3be["max_abs_err"]),
+        "errors": {"train": k3b["errors"], "eval": k3be["errors"]},
+        "ms": k3b["ms"], "plain_ms": k3b["plain_ms"],
+        "plain_autograd_ms": k3b["plain_autograd_ms"],
+        "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"],
+        "library_ms": k3b["library_ms"], "library": "SDPA forward + backward",
+        "shape": "S=600 K=10 H=2 D=50",
+        "device_us": k3b["device_us"], "library_device_us": k3b["library_device_us"],
+        "plain_autograd_device_us": k3b["plain_autograd_device_us"],
+        "bound_share": k3b["bound_share"], "bound_share_device": k3b["bound_share_device"],
+        "eval": {k: k3be[k] for k in ("ms", "plain_ms", "plain_autograd_ms", "bound_ms",
+                                       "bound_by", "library_ms", "device_us",
+                                       "library_device_us", "bound_share",
+                                       "bound_share_device")},
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": SEG_SOURCE, "replaces": TPU_K4,

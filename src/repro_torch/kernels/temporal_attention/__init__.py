@@ -1,6 +1,6 @@
 """Temporal neighbor attention: the CUDA kernels (the fused layer forward
-and backward, and the classic path's masked attention), their plain
-versions and the ``mode=`` dispatch."""
+and backward, and the classic path's masked attention and its gradient),
+their plain versions and the ``mode=`` dispatch."""
 
 from repro_torch.kernels.temporal_attention.kernel import (
     LAUNCHES,
@@ -8,6 +8,8 @@ from repro_torch.kernels.temporal_attention.kernel import (
     fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
     reset_launches,
+    ta_plan,
+    temporal_attention_bwd_kernel,
     temporal_attention_kernel,
 )
 from repro_torch.kernels.temporal_attention.ops import (
@@ -21,6 +23,7 @@ from repro_torch.kernels.temporal_attention.ref import (
     fused_temporal_layer_bwd_ref,
     fused_temporal_layer_factored_ref,
     fused_temporal_layer_ref,
+    temporal_attention_bwd_ref,
     temporal_attention_ref,
 )
 
@@ -37,7 +40,10 @@ __all__ = [
     "fused_temporal_layer_kernel",
     "fused_temporal_layer_ref",
     "reset_launches",
+    "ta_plan",
     "temporal_attention",
+    "temporal_attention_bwd_kernel",
+    "temporal_attention_bwd_ref",
     "temporal_attention_kernel",
     "temporal_attention_ref",
 ]

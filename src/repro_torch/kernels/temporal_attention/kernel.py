@@ -39,9 +39,13 @@ call.
 ``csrc/temporal_attention.cu`` replaces the TPU kernel
 ``temporal_attention_kernel`` (``kernel.py:100`` of the reference): masked
 seed -> K-neighbor attention over pre-gathered (S, K, H, D) keys and values,
-the attention core of the classic path. ``temporal_attention_kernel`` is
-its wrapper (forward only, as in the reference; ``ops._TemporalAttentionFn``
-differentiates the plain version by recompute).
+the attention core of the classic path (K3). ``csrc/temporal_attention_bwd.cu``
+is its gradient (K3b), which the reference leaves to XLA's autodiff of the
+oracle; ``ops._TemporalAttentionFn`` pairs the two. Both run one warp per
+seed over all heads, the valid slots' rows staged in chunks
+(``csrc/temporal_attention.cuh``); ``ta_plan`` mirrors their launch plan.
+``temporal_attention_kernel`` and ``temporal_attention_bwd_kernel`` are
+their wrappers.
 """
 
 from __future__ import annotations
@@ -55,13 +59,16 @@ import torch
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_temporal_layer.cu"
 BWD_SOURCE = SOURCE.with_name("fused_temporal_layer_bwd.cu")
 TA_SOURCE = SOURCE.with_name("temporal_attention.cu")
+TA_BWD_SOURCE = SOURCE.with_name("temporal_attention_bwd.cu")
 
 LAUNCHES = {"fused_temporal_layer": 0, "fused_recency_attention": 0,
-            "fused_temporal_layer_bwd": 0, "temporal_attention": 0}
+            "fused_temporal_layer_bwd": 0, "temporal_attention": 0,
+            "temporal_attention_bwd": 0}
 
 _lib = None
 _bwd_lib = None
 _ta_lib = None
+_ta_bwd_lib = None
 
 
 def reset_launches() -> None:
@@ -113,13 +120,31 @@ def _ta_library():
 
         lib = _build.load(TA_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.temporal_attention_fwd.argtypes = [p] * 5 + [i] * 5 + [
+        lib.temporal_attention_fwd.argtypes = [p] * 5 + [i] * 6 + [
             ctypes.c_float, p]
         lib.temporal_attention_fwd.restype = i
+        lib.temporal_attention_plan.argtypes = [i] * 6 + [p]
+        lib.temporal_attention_plan.restype = None
         lib.temporal_attention_error_string.argtypes = [i]
         lib.temporal_attention_error_string.restype = ctypes.c_char_p
         _ta_lib = lib
     return _ta_lib
+
+
+def _ta_bwd_library():
+    global _ta_bwd_lib
+    if _ta_bwd_lib is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load(TA_BWD_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.temporal_attention_bwd.argtypes = [p] * 8 + [i] * 6 + [
+            ctypes.c_float, p]
+        lib.temporal_attention_bwd.restype = i
+        lib.temporal_attention_bwd_error_string.argtypes = [i]
+        lib.temporal_attention_bwd_error_string.restype = ctypes.c_char_p
+        _ta_bwd_lib = lib
+    return _ta_bwd_lib
 
 
 # The sources' tile arithmetic (fused_temporal_layer.cuh and
@@ -330,22 +355,69 @@ def fused_temporal_layer_bwd_kernel(
     return grads
 
 
-# Storage types K3 takes, by the code its C interface expects.
+# Storage types K3 and K3b take, by the code their C interfaces expect, and
+# their element sizes.
 _TA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TA_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+
+# K3's and K3b's launch plan (csrc/temporal_attention.cuh): slots staged in
+# chunks of at most TA_MAX_CHUNK; K3 one seed (warp) a block, K3b up to
+# TA_MAX_WARPS within the default shared memory of a block, one warp with
+# the opt-in above it.
+TA_MAX_WARPS = 8
+TA_MAX_CHUNK = 16
+TA_DEFAULT_SHARED = 48 * 1024
+TA_MAX_SHARED = 232_448
 
 
-def temporal_attention_kernel(q, k, v, mask, *, scale: float | None = None):
-    """Masked seed -> K-neighbor attention on the GPU (K3).
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
 
-    q: (S, H, D); k, v: (S, K, H, D), all float32 or all bfloat16; mask:
-    (S, K) bool; every tensor contiguous on one CUDA device. Returns a new
-    (S, H, D) tensor of q's dtype: ``softmax((q . k) * scale)`` over the
-    valid slots applied to v (scale 1/sqrt(D) unless given), exact zeros for
-    a seed with no valid slot. Any S (0 too), K >= 1 and D.
-    """
+
+def _ta_warp_bytes(chunk: int, H: int, D: int, esize: int, backward: bool) -> int:
+    """One warp's shared bytes (``FwdLayout`` / ``BwdLayout``): the staged k
+    and v rows of a chunk, q (and g), the chunk's per-pair floats (scores;
+    and dp), four floats of softmax state per head, HD float32 sums."""
+    HD = H * D
+    rows, row = _a16(chunk * HD * esize), _a16(HD * esize)
+    pairs, tail = _a16(chunk * H * 4), _a16(16 * H) + _a16(4 * HD)
+    if backward:
+        return 2 * rows + 2 * row + 2 * pairs + tail
+    return 2 * rows + row + pairs + tail
+
+
+def ta_plan(S: int, K: int, H: int, D: int, dtype: torch.dtype,
+            aligned: bool, *, backward: bool = False) -> dict:
+    """K3's (or, with ``backward``, K3b's) launch plan for these sizes, as
+    ``csrc/temporal_attention.cuh::plan`` computes it: ``chunk`` slots a
+    stage (min(K, 16), halved while one warp's shared memory would pass the
+    opt-in limit), ``warps`` seeds a block (K3: 1; K3b: the most, up to 8,
+    within 48 KB, else 1), ``warp_bytes`` / ``block_bytes`` of shared
+    memory, ``blocks``, ``chunks`` per seed, and ``vector_bytes``: 16
+    (cp.async) when a slot row of H * D elements is a multiple of 16 bytes
+    and the operands are 16-byte ``aligned``, else the element size (the
+    scalar path). Raises when no chunk fits one warp."""
+    esize = _TA_ESIZE[dtype]
+    chunk = min(K, TA_MAX_CHUNK)
+    while chunk > 1 and _ta_warp_bytes(chunk, H, D, esize, backward) > TA_MAX_SHARED:
+        chunk //= 2
+    per = _ta_warp_bytes(chunk, H, D, esize, backward)
+    if per > TA_MAX_SHARED:
+        raise ValueError(f"H * D = {H * D} is too wide for one warp's shared memory")
+    warps = TA_MAX_WARPS if backward else 1
+    while warps > 1 and warps * per > TA_DEFAULT_SHARED:
+        warps -= 1
+    vec = aligned and (H * D * esize) % 16 == 0
+    return {"warps": warps, "chunk": chunk, "chunks": -(-K // chunk),
+            "vector_bytes": 16 if vec else esize, "warp_bytes": per,
+            "block_bytes": warps * per, "blocks": -(-max(S, 0) // warps)}
+
+
+def _ta_check(q, k, v, mask):
+    """Validate K3's operands; returns (S, K, H, D)."""
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError(
-            "the temporal attention kernel runs on CUDA tensors (use "
+            "the temporal attention kernels run on CUDA tensors (use "
             "mode='ref' or 'auto' for the plain version)")
     if q.dtype not in _TA_DTYPES or q.dim() != 3:
         raise TypeError(f"q must be a float32 or bfloat16 (S, H, D) tensor, "
@@ -361,18 +433,73 @@ def temporal_attention_kernel(q, k, v, mask, *, scale: float | None = None):
     _check(mask, "mask", torch.bool, (S, K), dev)
     if K < 1 or H < 1 or D < 1:
         raise ValueError(f"unsupported sizes K={K}, H={H}, D={D}")
-    out = torch.empty((S, H, D), dtype=q.dtype, device=dev)
+    return S, K, H, D
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _ta_vec(H: int, D: int, *ts) -> int:
+    """1 for the kernels' 16-byte path (``ta_plan``'s rule), else 0."""
+    return int((H * D * _TA_ESIZE[ts[0].dtype]) % 16 == 0 and _aligned(*ts))
+
+
+def temporal_attention_kernel(q, k, v, mask, *, scale: float | None = None):
+    """Masked seed -> K-neighbor attention on the GPU (K3).
+
+    q: (S, H, D); k, v: (S, K, H, D), all float32 or all bfloat16; mask:
+    (S, K) bool; every tensor contiguous on one CUDA device. Returns a new
+    (S, H, D) tensor of q's dtype: ``softmax((q . k) * scale)`` over the
+    valid slots applied to v (scale 1/sqrt(D) unless given), exact zeros for
+    a seed with no valid slot. Any S (0 launches nothing), K >= 1, H and D;
+    the 16-byte path where ``ta_plan``'s rule allows it, else the scalar
+    path. The CUDA source plans the launch itself (``ta_plan`` mirrors it)
+    and refuses a row too wide for one warp's shared memory.
+    """
+    S, K, H, D = _ta_check(q, k, v, mask)
+    out = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
     if S == 0:
         return out
     lib = _ta_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.temporal_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), S, H, D, K, _TA_DTYPES[q.dtype],
+            out.data_ptr(), S, H, D, K, _TA_DTYPES[q.dtype], _ta_vec(H, D, q, k, v),
             float(scale if scale is not None else 1.0 / math.sqrt(D)), stream)
     if err:
         msg = lib.temporal_attention_error_string(err).decode()
         raise RuntimeError(f"temporal_attention launch failed: {msg} ({err})")
     LAUNCHES["temporal_attention"] += 1
     return out
+
+
+def temporal_attention_bwd_kernel(g, q, k, v, mask, *,
+                                  scale: float | None = None):
+    """Gradient of ``temporal_attention_kernel`` on the GPU (K3b).
+
+    g: (S, H, D) cotangent of K3's output, of q's dtype; q, k, v and mask as
+    in the forward, contiguous on one CUDA device. Returns new ``(dq, dk,
+    dv)`` of q's dtype and shapes: exact zeros in dk and dv for masked slots
+    and in all three for a seed with no valid slot. One launch, no atomics:
+    a second call gives the same bits.
+    """
+    S, K, H, D = _ta_check(q, k, v, mask)
+    _check(g, "g", q.dtype, (S, H, D), q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if S == 0:
+        return dq, dk, dv
+    lib = _ta_bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.temporal_attention_bwd(
+            g.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            S, H, D, K, _TA_DTYPES[q.dtype], _ta_vec(H, D, g, q, k, v),
+            float(scale if scale is not None else 1.0 / math.sqrt(D)), stream)
+    if err:
+        msg = lib.temporal_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"temporal_attention_bwd launch failed: {msg} ({err})")
+    LAUNCHES["temporal_attention_bwd"] += 1
+    return dq, dk, dv

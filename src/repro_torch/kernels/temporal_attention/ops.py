@@ -23,9 +23,9 @@ launches the forward kernel and saves only the operands, its backward
 launches the backward kernel, which recomputes the attention. On the CPU
 plain autograd differentiates the plain version. ``temporal_attention``
 is differentiable through ``_TemporalAttentionFn``: the reference's kernel
-is forward only (its VJP is XLA's, of the jnp oracle), so the forward
-launches the kernel and the backward differentiates the plain version by
-recompute, in plain PyTorch.
+is forward only (its VJP is XLA's, of the jnp oracle); here the forward
+launches K3 and the backward launches K3b, the backward kernel that
+computes that gradient from the saved operands.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from repro_torch.kernels.temporal_attention.kernel import (
     fused_recency_attention_kernel,
     fused_temporal_layer_bwd_kernel,
     fused_temporal_layer_kernel,
+    temporal_attention_bwd_kernel,
     temporal_attention_kernel,
 )
 from repro_torch.kernels.temporal_attention.ref import (
@@ -50,8 +51,9 @@ from repro_torch.kernels.temporal_attention.ref import (
 # tests can stand the plain versions in for them; nothing else rebinds them.
 _FWD = fused_temporal_layer_kernel
 _BWD = fused_temporal_layer_bwd_kernel
-# The forward launch of ``_TemporalAttentionFn``, a test seam likewise.
+# The two launches of ``_TemporalAttentionFn``, test seams likewise.
 _TA_FWD = temporal_attention_kernel
+_TA_BWD = temporal_attention_bwd_kernel
 
 # Names of ``_FusedLayerFn``'s positional arguments, in order. Its backward
 # returns a gradient for those in ``GRAD_NAMES`` and None for the rest
@@ -131,12 +133,12 @@ def fused_recency_attention(q, k_table, v_table, seeds, buf_ids, *,
 
 
 class _TemporalAttentionFn(torch.autograd.Function):
-    """K3 with the plain version's gradient, by recompute.
+    """K3 with K3b as its gradient.
 
-    ``forward`` launches the kernel and saves q, k, v and the mask;
-    ``backward`` runs the plain version on them under autograd and returns
-    its gradients for q, k and v (masked slots and rows with no valid slot
-    get exact zeros, as the plain version's ``where``s give).
+    ``forward`` launches K3 and saves q, k, v and the mask; ``backward``
+    launches K3b on them and the cotangent, which recomputes the scores,
+    and returns its gradients for q, k and v (masked slots and rows with no
+    valid slot get exact zeros, as the plain version's ``where``s give).
     """
 
     @staticmethod
@@ -147,10 +149,7 @@ class _TemporalAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask = ctx.saved_tensors
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            out = temporal_attention_ref(*leaves, mask)
-            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        dq, dk, dv = _TA_BWD(g.contiguous(), q, k, v, mask)
         return dq, dk, dv, None
 
 

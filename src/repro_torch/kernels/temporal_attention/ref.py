@@ -2,7 +2,9 @@
 
 ``temporal_attention_ref`` is the twin of
 ``repro.kernels.temporal_attention.ref.temporal_attention_ref``: masked
-seed -> K-neighbor attention over pre-gathered keys and values. The rest are
+seed -> K-neighbor attention over pre-gathered keys and values;
+``temporal_attention_bwd_ref`` is its gradient in the backward kernel's
+formulas (what the tests and ``chip_smoke.py`` hold K3b against). The rest are
 materializing twins of ``repro.kernels.temporal_attention.ref``: they build
 every intermediate the CUDA kernel keeps in shared memory — the gathered
 (S, K, H, D) node-level k/v rows, the Bochner time bias
@@ -47,6 +49,27 @@ def temporal_attention_ref(q, k, v, mask, *, scale: float | None = None):
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1)[:, None, None], p, 0.0)
     return torch.einsum("shk,skhd->shd", p, v.float()).to(q.dtype)
+
+
+def temporal_attention_bwd_ref(g, q, k, v, mask, *, scale: float | None = None):
+    """Gradients of ``temporal_attention_ref`` for the cotangent ``g`` (S, H,
+    D), by the formulas the backward kernel (K3b) computes, in float32: p
+    the masked softmax of (q . k) * scale, dp = g . v, delta = sum_j p dp,
+    ds = p (dp - delta), dq = scale sum_j ds k, dk = scale ds q, dv = p g.
+    Returns ``(dq, dk, dv)`` in q's dtype; masked slots and rows with no
+    valid slot give exact zeros (p is exactly 0 there)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = torch.einsum("shd,skhd->shk", qf, kf) * scale
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None, None], p, 0.0)
+    dp = torch.einsum("shd,skhd->shk", gf, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = scale * torch.einsum("shk,skhd->shd", ds, kf)
+    dk = scale * torch.einsum("shk,shd->skhd", ds, qf)
+    dv = torch.einsum("shk,shd->skhd", p, gf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def fused_temporal_layer_ref(

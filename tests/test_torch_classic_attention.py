@@ -8,8 +8,10 @@ tensors (its plain version). Tolerances as in ``tests/kernels/harness.py``:
 forward f32 2e-5, bf16 2e-2; gradients 1e-4, against ``jax.vjp`` of the
 reference's oracle taken op by op (``jax.disable_jit()``). Masked slots and
 rows with no valid slot give exact zeros in the output and the gradients.
-The CUDA kernel itself runs only on the card: ``chip_smoke.py`` holds it
-against the plain version there (``classic_kernels`` phase).
+The CUDA kernels (K3 and its gradient K3b) run only on the card:
+``chip_smoke.py`` holds them against the plain versions there
+(``classic_kernels`` phase); ``test_torch_classic_attention_bwd.py`` holds
+K3b's plain version and the kernels' chunked arithmetic here.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from repro.nn import attention as jattn
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.temporal_attention import (
     temporal_attention,
+    temporal_attention_bwd_kernel,
+    temporal_attention_bwd_ref,
     temporal_attention_kernel,
     temporal_attention_ref,
 )
@@ -130,10 +134,12 @@ def _jax_vjp(q, k, v, mask, g):
 
 @pytest.mark.parametrize("mask_kind", ["random", "rows", "one", "none"])
 def test_function_backward_matches_jax_grad(monkeypatch, mask_kind):
-    """``_TemporalAttentionFn`` with the plain version standing in for the
-    kernel launch: its recompute backward against ``jax.vjp`` of the
-    reference's oracle, with exact zeros on masked slots and empty rows."""
+    """``_TemporalAttentionFn`` with the plain versions standing in for the
+    kernel launches (K3's and K3b's): its backward against ``jax.vjp`` of
+    the reference's oracle, with exact zeros on masked slots and empty
+    rows."""
     monkeypatch.setattr(tops, "_TA_FWD", temporal_attention_ref)
+    monkeypatch.setattr(tops, "_TA_BWD", temporal_attention_bwd_ref)
     S, K, H, D = 33, 8, 2, 16
     q, k, v, mask = _inputs(5, S, K, H, D, mask_kind)
     g = np.random.default_rng(6).standard_normal((S, H, D)).astype(np.float32)
@@ -154,8 +160,11 @@ def test_function_backward_matches_jax_grad(monkeypatch, mask_kind):
 
 def test_plain_autograd_matches_the_function(monkeypatch):
     """On the CPU ``temporal_attention`` differentiates the plain version
-    directly; it gives the Function's gradients."""
+    directly; it gives the Function's gradients (K3b's formulas, by their
+    plain version) within the gradient tolerance, with the same exact
+    zeros."""
     monkeypatch.setattr(tops, "_TA_FWD", temporal_attention_ref)
+    monkeypatch.setattr(tops, "_TA_BWD", temporal_attention_bwd_ref)
     q, k, v, mask = _inputs(9, 20, 10, 2, 50, "rows")
     g = torch.from_numpy(
         np.random.default_rng(2).standard_normal((20, 2, 50)).astype(np.float32))
@@ -167,7 +176,11 @@ def test_plain_autograd_matches_the_function(monkeypatch):
         fn(*leaves, tm).backward(g)
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
-        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_TOL)
+    masked, empty = torch.from_numpy(~mask), torch.from_numpy(~mask.any(-1))
+    for dq, dk, dv in grads:
+        assert bool((dq[empty] == 0).all())
+        assert bool((dk[masked] == 0).all()) and bool((dv[masked] == 0).all())
 
 
 def test_dispatch_modes():
@@ -181,6 +194,8 @@ def test_dispatch_modes():
         temporal_attention(q, k, v, mask, mode="interpret")
     with pytest.raises(ValueError, match="CUDA"):
         temporal_attention_kernel(q, k, v, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        temporal_attention_bwd_kernel(q, q, k, v, mask)
 
 
 @pytest.mark.parametrize("mask_kind", ["random", "rows"])

@@ -123,6 +123,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
     DeviceRecencySampler(10, 4, device="cpu")  # the explicit CPU path runs
 
 
+def test_classic_attention_kernels_import_without_jax():
+    """K3, its backward kernel K3b, their plain versions and the launch-plan
+    mirror import from the port alone, and the autograd Function's two
+    launches are the two kernels."""
+    code = (
+        "import sys\n"
+        "from repro_torch.kernels.temporal_attention import (\n"
+        "    ta_plan, temporal_attention_bwd_kernel, temporal_attention_bwd_ref,\n"
+        "    temporal_attention_kernel, temporal_attention_ref)\n"
+        "import repro_torch.kernels.temporal_attention.ops as ops\n"
+        "assert ops._TA_FWD is temporal_attention_kernel\n"
+        "assert ops._TA_BWD is temporal_attention_bwd_kernel\n"
+        "assert ta_plan(600, 10, 2, 50, __import__('torch').float32, True)['chunk'] == 10\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 # Verbatim copies of reference modules keep the reference's docstrings.
 _COPIED = {"repro_torch.core.batch", "repro_torch.core.hooks"}
 
