@@ -88,8 +88,29 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    ``last_update``), step parity with exactly-zero GRU gradients, one
    ``train_epoch()`` with its launch counts, a checkpoint round trip with
    the model state.
+11. ``tgat2``  — 2-layer TGAT, the reference's default TGAT (``ModelSpec
+   ("tgat")`` with no kwargs: two layers, two hops, k = 20): first its
+   kernel calls at its shapes against their plain versions (K1 in the seed
+   form at S = 600 and 4,400, the hop-2 form over the frontier's 12,000 and
+   88,000 queries with padded slots, empty rows and negative time deltas,
+   and the per-seed form over 12,000- and 88,000-row tables; K2 at the
+   train shapes with a second run bitwise; K3 at (600, 20), (12,000, 20),
+   (4,400, 20) and (88,000, 20) over two 16-slot chunks, K3b at the train
+   shapes; times, device µs from one profiler window, bounds, SDPA for K3
+   and K3b); then on full-scale ``wikipedia``, on the device sampler (K1,
+   K2) and on the host sampler (K3, K3b): ``evaluate("val")`` through the
+   kernels (three launches a scored batch) and with the plain version (MRR
+   within 1e-4, the sampler state bit-equal), the first train steps held
+   step by step (each of a step's three attention calls), one
+   ``train_epoch()`` (three forward and three backward launches a batch)
+   and a checkpoint round trip; the two samplers' hop-1 and hop-2
+   neighborhoods bit-equal batch by batch; last ``python -m
+   repro_torch.launch.train`` on the card, killed and resumed: ``tg``
+   (2-layer TGAT, wikipedia at data scale 0.1) and ``dtdg`` (GCLSTM, full
+   scale, killed mid-epoch), the resumed ``dtdg`` run's test MRR equal to
+   the uninterrupted run's to the bit.
 
-11. ``lm_kernels`` — the LM serving slice's kernels against their plain
+12. ``lm_kernels`` — the LM serving slice's kernels against their plain
    versions on the card at its shapes (B = 4, S = 4,096, bfloat16): K5
    (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
    window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
@@ -105,7 +126,7 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
    rows, steep decay in both types, groups incl. two at N = 128, P and N
    not multiples of 16); ``profiler_clock`` before the phase.
-12. ``lm``     — first the decode attentions' products (``layers.
+13. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
    shapes, within DECODE_TOL, with the memory a call allocates held below
@@ -141,7 +162,9 @@ epochs), ``dtdg_parity`` (the step parity over more steps), and for the
 classic path ``host_profile`` (the per-batch split of the host-sampler
 quickstart), ``host_trace`` and ``host_train_trace`` (its profiler windows)
 ``tgn_device_train_trace`` / ``tgn_host_train_trace`` (TGN's train
-steps under the profiler on each sampler), and in ``lm`` a profiler window
+steps under the profiler on each sampler), ``tgat2_{device,host}_trace``
+and ``tgat2_{device,host}_train_trace`` (2-layer TGAT's scored val batches
+and train steps under the profiler on each sampler), and in ``lm`` a profiler window
 over hymba's decode steps (``decode_trace``, with the device ms per step of
 copy kernels and the largest copies by shape). ``build`` and
 ``lm_kernels`` report ``profiler_clock`` (what the profiler keeps of two
@@ -762,7 +785,8 @@ def _flat(tree, prefix=""):
 def step_parity(torch, pipe, n_steps: int):
     """The first ``n_steps`` train steps through the kernels, each from the
     same parameters (and model state) as a plain-version step. Held: the
-    loss, and the attention as the model calls it in that step: on the fused
+    loss, and every attention call of the step as the model makes it (one
+    a step with 1-layer TGAT or TGN, three with 2-layer TGAT): on the fused
     path K1 against the plain forward on the step's own inputs and K2
     against the plain backward on the step's own cotangent (taken from the
     autograd graph); on the classic path K3 against its plain version on the
@@ -782,8 +806,9 @@ def step_parity(torch, pipe, n_steps: int):
     layer, attention, seen = ta.fused_temporal_layer, ta.temporal_attention, {}
 
     def watch(name, out, args):
-        seen[name] = args
-        out.register_hook(lambda g: seen.__setitem__(name + "_g", g.detach().contiguous()))
+        rec = {"args": args}
+        seen.setdefault(name, []).append(rec)
+        out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
 
     def layer_spy(q, k_table, v_table, seeds, seed_times, buf, *, mode, **kw):
         out = layer(q, k_table, v_table, seeds, seed_times, buf, mode=mode, **kw)
@@ -810,7 +835,9 @@ def step_parity(torch, pipe, n_steps: int):
              "model_grad_rel": 0.0, "model_grad_name": None,
              "steps_with_model_grads_beyond_1e-4": 0,
              "gru_grads_exactly_zero": pipe.stateful or None}
+    # The per-seed form reaches the layer through ``ops``' own name.
     ta.fused_temporal_layer, ta.temporal_attention = layer_spy, attention_spy
+    ta.ops.fused_temporal_layer = layer_spy
     try:
         pipe.reset_epoch_state()
         with pipe.manager.activate(TRAIN_KEY):
@@ -825,27 +852,30 @@ def step_parity(torch, pipe, n_steps: int):
                 check(dl <= STEP_LOSS_TOL, f"train step {i}: loss {loss.item()} "
                                            f"(kernels) vs {loss_ref.item()} (plain)")
                 worst["loss"] = max(worst["loss"], dl)
-                if "layer" in seen:
-                    a, g = seen.pop("layer"), seen.pop("layer_g")
+                check(bool(seen), f"train step {i}: the kernel path ran no kernel")
+                worst["calls_per_step"] = {k: len(v) for k, v in seen.items()}
+                for c, rec in enumerate(seen.pop("layer", [])):
+                    a, g = rec["args"], rec["g"]
                     err = compare(torch, ta.fused_temporal_layer_kernel(**a),
-                                  ta.fused_temporal_layer_ref(**a), f"K1 train step {i}")
+                                  ta.fused_temporal_layer_ref(**a),
+                                  f"K1 train step {i} call {c}")
                     errs = compare_grads(torch, ta.fused_temporal_layer_bwd_kernel(g, **a),
                                          ta.fused_temporal_layer_bwd_ref(g, **a),
-                                         f"K2 train step {i}")
+                                         f"K2 train step {i} call {c}")
                     worst["k1_max_abs_err"] = max(worst["k1_max_abs_err"], err)
                     worst["k2_max_rel_err"] = max(worst["k2_max_rel_err"],
                                                   *(e[1] for e in errs.values()))
-                if "attention" in seen:
-                    a, g = seen.pop("attention"), seen.pop("attention_g")
+                for c, rec in enumerate(seen.pop("attention", [])):
+                    a, g = rec["args"], rec["g"]
                     err = compare(torch, ta.temporal_attention_kernel(*a),
-                                  ta.temporal_attention_ref(*a), f"K3 train step {i}")
+                                  ta.temporal_attention_ref(*a),
+                                  f"K3 train step {i} call {c}")
                     got = ta.temporal_attention_bwd_kernel(g, *a)
                     want = plain_attention_grads(torch, g, *a)
-                    gerr = max(compare(torch, x, y, f"K3b d{n} train step {i}")
+                    gerr = max(compare(torch, x, y, f"K3b d{n} train step {i} call {c}")
                                for n, x, y in zip("qkv", got, want))
                     worst["k3_max_abs_err"] = max(worst["k3_max_abs_err"], err)
                     worst["k3_grad_max_abs_err"] = max(worst["k3_grad_max_abs_err"], gerr)
-                check(not seen, f"train step {i}: the kernel path ran no kernel")
                 beyond = False
                 for name, gr in _flat(grads).items():
                     want = grads_ref[name]
@@ -864,13 +894,14 @@ def step_parity(torch, pipe, n_steps: int):
                     pipe.model_state = new_state
     finally:
         ta.fused_temporal_layer, ta.temporal_attention = layer, attention
+        ta.ops.fused_temporal_layer = layer
     torch.cuda.synchronize()
     return worst
 
 
-def run_epoch(torch, pipe, fused):
+def run_epoch(torch, pipe, fused, val_mrr=True):
     """One ``train_epoch()`` with ``pipe.fused = fused``, launch counts zeroed
-    just before it and read just after, then val MRR."""
+    just before it and read just after, then (with ``val_mrr``) val MRR."""
     from repro_torch.kernels.temporal_attention import LAUNCHES, reset_launches
 
     n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
@@ -882,7 +913,7 @@ def run_epoch(torch, pipe, fused):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = dict(LAUNCHES)
-    mrr, _ = pipe.evaluate("val")
+    mrr = pipe.evaluate("val")[0] if val_mrr else None
     return dict(loss=loss, epoch_seconds=wall, train_epoch_seconds=secs,
                 ms_per_step=1e3 * wall / n_train, val_mrr=mrr,
                 launches=launches)
@@ -1844,14 +1875,15 @@ def host_phase(torch):
                 neighborhoods=neighborhoods_check(torch, pipe))
 
 
-def neighborhoods_check(torch, host_pipe):
+def neighborhoods_check(torch, host_pipe, dev=None):
     """The host-sampled pipeline's neighborhoods against the device
-    sampler's (``nbr_ids/times/eids/mask``), batch by batch, over the
-    warm pass through train and the val batches: bit-equal, as the
-    reference promises of its two samplers. Also the median time of each
-    loader's batch (its hooks and the staging on the card, closed by a
-    synchronise): train batches (S = 600) and scored val batches (S =
-    4,400)."""
+    sampler's (``nbr_ids/times/eids/mask``, and the hop-2 ``nbr2_*`` when
+    the hooks sample two hops), batch by batch, over the warm pass through
+    train and the val batches: bit-equal, as the reference promises of its
+    two samplers. ``dev`` is the device-sampled pipeline (the quickstart's
+    by default). Also the median time of each loader's batch (its hooks and
+    the staging on the card, closed by a synchronise): train batches (S =
+    600) and scored val batches (S = 4,400)."""
     from repro_torch.core import EVAL_KEY, TRAIN_KEY
 
     def timed(loader, into):
@@ -1866,8 +1898,10 @@ def neighborhoods_check(torch, host_pipe):
             into.append(1e3 * (time.perf_counter() - t))
             yield batch
 
-    dev = quickstart().compile(device=DEVICE)
-    counts, ms = {}, {}
+    if dev is None:
+        dev = quickstart().compile(device=DEVICE)
+    names = ("nbr_ids", "nbr_times", "nbr_eids", "nbr_mask")
+    counts, ms, hop2 = {}, {}, ()
     for p in (host_pipe, dev):
         p.reset_epoch_state()
     for key, data in ((TRAIN_KEY, "train_data"), (EVAL_KEY, "val_data")):
@@ -1875,7 +1909,10 @@ def neighborhoods_check(torch, host_pipe):
         with host_pipe.manager.activate(key), dev.manager.activate(key):
             for a, b in zip(timed(host_pipe._loader(getattr(host_pipe, data)), th),
                             timed(dev._loader(getattr(dev, data)), td)):
-                for name in ("nbr_ids", "nbr_times", "nbr_eids", "nbr_mask"):
+                hop2 = tuple(k.replace("nbr_", "nbr2_") for k in names) if "nbr2_ids" in a else ()
+                check(("nbr2_ids" in a) == ("nbr2_ids" in b), f"{data} batch {n}: "
+                      f"one sampler gave a hop-2 neighborhood, the other none")
+                for name in names + hop2:
                     check(a[name].device == b[name].device and torch.equal(a[name], b[name]),
                           f"{data} batch {n}: {name} differs between the host "
                           f"and device samplers")
@@ -1885,7 +1922,8 @@ def neighborhoods_check(torch, host_pipe):
                     "device_sampler_ms_per_batch": statistics.median(td)}
     check(counts["val_data"] == math.ceil(dev.val_data.num_edge_events / dev.batch_size),
           "neighborhood check: val batch count")
-    return {"batches": counts, "bit_equal": True, "loader": ms}
+    return {"batches": counts, "bit_equal": True, "hops": 2 if hop2 else 1,
+            "loader": ms}
 
 
 def tgn_experiment(device_sampler: bool):
@@ -1928,8 +1966,6 @@ def tgn_phase(torch, data):
     batch; host: K3 and K3b once per batch) with val MRR after it; a checkpoint save
     and restore on the card, bit-equal in parameters, optimizer, model state
     and sampler state."""
-    import shutil
-
     out = {}
     for label, on_device in (("device", True), ("host", False)):
         t0 = time.perf_counter()
@@ -1966,28 +2002,7 @@ def tgn_phase(torch, data):
               f"TGN {label} train epoch launched {launched} for {n_train} batches")
         check(math.isfinite(run["loss"]), f"TGN {label} epoch loss {run['loss']}")
 
-        ck_dir = ROOT / "checkpoints" / f"chip_smoke_tgn_{label}"
-        shutil.rmtree(ck_dir, ignore_errors=True)
-        try:
-            saved = (_tree_clone(pipe.params), _tree_clone(pipe.opt_state),
-                     _tree_clone(pipe.model_state), pipe.manager.state_dict())
-            pipe.save_checkpoint(str(ck_dir), 1)
-            pipe.load_params(init[0])
-            pipe.load_opt_state(init[1])
-            pipe.reset_epoch_state()
-            check(pipe.restore_checkpoint(str(ck_dir)) == 1, "TGN checkpoint step")
-            check(_trees_equal(torch, pipe.params, saved[0])
-                  and _trees_equal(torch, pipe.opt_state, saved[1])
-                  and _trees_equal(torch, pipe.model_state, saved[2])
-                  and pipe.model_state["last_update"].dtype == torch.int32
-                  and pipe.model_state["memory"].device == pipe.device,
-                  f"TGN {label}: checkpoint round trip changed the state")
-            restored = pipe.manager.state_dict()
-            for group in saved[3]:
-                check(_states_equal(restored[group], saved[3][group]),
-                      f"TGN {label}: checkpoint round trip changed the sampler state")
-        finally:
-            shutil.rmtree(ck_dir, ignore_errors=True)
+        checkpoint_round_trip(torch, pipe, f"tgn_{label}", init)
         update_ms = memory_update_ms(torch, pipe)
         out[label] = dict(setup_seconds=setup_s, val_batches=n_val,
                           train_batches=n_train, eval=ev, eval_ref=ev_ref,
@@ -1996,6 +2011,533 @@ def tgn_phase(torch, data):
                           kernels=run, memory_update_ms=update_ms,
                           checkpoint_bit_equal=True)
         del pipe
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2-layer TGAT: the reference's default TGAT (two layers, two hops, k = 20)
+# ---------------------------------------------------------------------------
+K20 = 20
+# Train steps of 2-layer TGAT held step by step (three attention calls each:
+# the seeds, the hop-1 frontier and the final hop).
+TGAT2_PARITY_STEPS = 3
+# Hop-2 kernel inputs: the share of padded frontier slots, and about the
+# share of nodes whose buffer row is empty.
+HOP2_PAD, HOP2_EMPTY = 0.2, 0.1
+# The CLI on the card: the tg workload on wikipedia at this data scale (900
+# nodes, 15,747 events; the full scale takes minutes an epoch on the host
+# sampler's hooks), the dtdg workload at full scale, one epoch in chunks of
+# 64 snapshot pairs (8 chunks), killed after 3.
+CLI_TG_SCALE, CLI_DTDG_SCALE = "0.1", "1.0"
+CLI_DTDG_CHUNK, CLI_DTDG_KILL = "64", "3"
+CLI_TIMEOUT_S = 300
+
+
+def grouped_device_us(torch, fns: dict, n: int = 5) -> dict:
+    """Device µs per call of each callable of ``fns`` (label -> fn), all from
+    one ``torch.profiler`` window between idle margins of PROFILE_MARGIN_S:
+    groups of ``n`` calls separated by ``torch.cuda._sleep`` launches (device
+    kernel ``spin_kernel``); a group's time is the sum of the device kernels
+    between its separators, over ``n``. Every label None (not measured) when
+    the profiler kept other than one separator more than there are groups."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        torch.cuda._sleep(1000)
+        for fn in fns.values():
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    cuts = [i for i, (_, _, name) in enumerate(spans) if "spin_kernel" in name]
+    if len(cuts) != len(fns) + 1:
+        return {label: None for label in fns}
+    return {label: sum(b - a for a, b, _ in spans[lo + 1:hi]) / n
+            for label, lo, hi in zip(fns, cuts, cuts[1:])}
+
+
+def _groups_like_layer_inputs(torch, gen):
+    """The time and edge groups as ``layer_inputs`` draws them."""
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(DEVICE)
+
+    w = math.sqrt(2.0 / (D_TIME + D_EDGE + 2 * H * D))
+    return dict(time_w=randn(D_TIME, scale=0.1), time_b=randn(D_TIME, scale=0.1),
+                wt_k=randn(D_TIME, H * D, scale=w), wt_v=randn(D_TIME, H * D, scale=w),
+                edge_feats=randn(N_EDGES, D_EDGE), we_k=randn(D_EDGE, H * D, scale=w),
+                we_v=randn(D_EDGE, H * D, scale=w))
+
+
+def hop2_inputs(torch, gen, S):
+    """The hop-2 call's operands for S seeds: an (S, 20) frontier over the
+    buffer, tables and groups of ``layer_inputs`` at K = 20 (N = 9,000,
+    E = 157,474): q (S * 20, H, D); a HOP2_PAD share of the frontier padded
+    (-1) and about a HOP2_EMPTY share of the nodes with an empty buffer
+    row; frontier times
+    uniform over the month, so about a third of the valid slots lie after
+    their frontier node's time (negative deltas, as hop-2 slots taken from
+    the batch's buffer can). Returns (wrapper operands, flat operands of
+    ``fused_temporal_layer``, groups)."""
+    n_f = S * K20
+    ops, kw = layer_inputs(torch, gen, n_f, k=K20,
+                           empty_rows=int(N_NODES * HOP2_EMPTY))
+    pad = (torch.rand(n_f, generator=gen) < HOP2_PAD).to(DEVICE)
+    seeds = torch.where(pad, -1, ops["seeds"])
+    f_t = torch.randint(0, 2_592_000, (n_f,), generator=gen, dtype=torch.int32).to(DEVICE)
+    flat = dict(ops, seeds=seeds, seed_times=f_t)
+    wrap = dict(q=ops["q"], k_table=ops["k_table"], v_table=ops["v_table"],
+                frontier=seeds.reshape(S, K20), frontier_times=f_t.reshape(S, K20),
+                buf=ops["buf"])
+    return wrap, flat, kw
+
+
+def per_seed_inputs(torch, gen, S):
+    """The final hop's operands for S seeds: q (S, H, D) and per-seed k/v
+    rows (S * 20, H, D); 80% of the seeds with all 20 slots valid, the rest
+    0..20, every 16th none; slot times before the seed's but a tenth after
+    it (negative deltas); edge ids with featureless -1s; the groups of
+    ``layer_inputs``. Returns (wrapper operands, flat operands of
+    ``fused_temporal_layer`` over the synthetic buffer, groups)."""
+    from repro_torch.kernels.temporal_attention.ops import per_seed_buffer
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen) * 0.25).to(DEVICE)
+
+    cnt = torch.where(torch.rand((S, 1), generator=gen) < 0.8, K20,
+                      torch.randint(0, K20 + 1, (S, 1), generator=gen))
+    mask = torch.arange(K20)[None] < cnt
+    mask[::16] = False
+    seed_t = torch.randint(2_000_000, 2_592_000, (S,), generator=gen, dtype=torch.int32)
+    back = torch.randint(0, 2_000_000, (S, K20), generator=gen, dtype=torch.int32)
+    late = torch.rand((S, K20), generator=gen) < 0.1
+    nbr_t = torch.where(late, seed_t[:, None] + 1000, seed_t[:, None] - back)
+    eids = torch.randint(-1, N_EDGES, (S, K20), generator=gen, dtype=torch.int32)
+    wrap = dict(q=randn(S, H, D), k_rows=randn(S * K20, H, D),
+                v_rows=randn(S * K20, H, D), seed_times=seed_t.to(DEVICE),
+                nbr_times=nbr_t.to(DEVICE), nbr_mask=mask.to(DEVICE),
+                nbr_eids=eids.to(DEVICE))
+    seeds, buf = per_seed_buffer(wrap["nbr_times"], wrap["nbr_mask"], wrap["nbr_eids"])
+    flat = dict(q=wrap["q"], k_table=wrap["k_rows"], v_table=wrap["v_rows"],
+                seeds=seeds, seed_times=wrap["seed_times"], buf=buf)
+    return wrap, flat, _groups_like_layer_inputs(torch, gen)
+
+
+def _live_rows(torch, flat):
+    """Rows of a fused-layer call with a valid slot (the others are exact
+    zeros in the output and in dq)."""
+    rows = flat["buf"][flat["seeds"].clamp(min=0).long()]
+    return (rows[..., 0] >= 0).any(-1) & (flat["seeds"] >= 0)
+
+
+def _negative_delta_share(torch, flat):
+    rows = flat["buf"][flat["seeds"].clamp(min=0).long()]
+    valid = (rows[..., 0] >= 0) & (flat["seeds"] >= 0)[:, None]
+    neg = (flat["seed_times"][:, None] - rows[..., 1]) < 0
+    return float((neg & valid).sum()) / max(int(valid.sum()), 1)
+
+
+def tgat2_kernels(torch):
+    """The 2-layer path's calls of K1, K2, K3 and K3b at its shapes (k =
+    20), each against its plain version on the card: K1 in the seed form
+    (S = 600 and 4,400 over the buffer), the hop-2 form (the frontier, S *
+    20 = 12,000 and 88,000 queries, padded, with empty rows and negative
+    deltas) and the per-seed form (S = 600 and 4,400 over 12,000- and
+    88,000-row tables, negative deltas, seeds with no valid slot), through
+    the wrappers the model calls; K2 at the train shapes, every gradient,
+    a second run bitwise (the per-seed form's table gradients included:
+    every table row is read by one seed); K3 at (600, 20), (12,000, 20),
+    (4,400, 20) and (88,000, 20) with rows whose first 16-slot chunk is all
+    masked and rows with no valid slot, and K3b at the train shapes (two
+    chunks: the restaging pass), each rerun bitwise and its plan held to
+    the CUDA source's. K1's and K2's workspace (the allocator's count)
+    against ``kernel.workspace_bytes``. Times (CUDA events; device µs per call from one
+    profiler window, ``grouped_device_us``), plain times, bounds and shares;
+    SDPA forward (and forward + backward) over the rows with a valid slot
+    for K3 (K3b)."""
+    from functools import partial
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.temporal_attention import (
+        fused_temporal_layer_bwd_kernel,
+        fused_temporal_layer_bwd_ref,
+        fused_temporal_layer_hop2,
+        fused_temporal_layer_kernel,
+        fused_temporal_layer_per_seed,
+        fused_temporal_layer_ref,
+        temporal_attention_bwd_kernel,
+        temporal_attention_bwd_ref,
+        temporal_attention_kernel,
+        temporal_attention_ref,
+    )
+    from repro_torch.kernels.temporal_attention.kernel import workspace_bytes
+
+    def sdpa_calls(q, k, v, m, g):
+        """SDPA forward, and forward + backward, over the rows with a valid
+        slot (SDPA gives no zeros for a row without one)."""
+        live = m.any(-1)
+        sq = q[live].unsqueeze(2).contiguous()                # (S', H, 1, D)
+        sk = k[live].permute(0, 2, 1, 3).contiguous()         # (S', H, K, D)
+        sv = v[live].permute(0, 2, 1, 3).contiguous()
+        sm = m[live][:, None, None, :].contiguous()
+        sg = g[live].unsqueeze(2).contiguous()
+        leaves = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
+
+        def fwd():
+            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=sm)
+                return torch.autograd.grad(out, leaves, sg)
+
+        return fwd, fwd_bwd, int(live.sum())
+
+    gen = torch.Generator().manual_seed(20)
+    dgen = torch.Generator(device=DEVICE).manual_seed(20)
+    res, timed = {}, {}
+
+    def workspace(r, what, fn, outputs_bytes, S, backward):
+        """The workspace a call allocates (the allocator's count) against
+        ``kernel.workspace_bytes``."""
+        r["workspace_bytes_planned"] = workspace_bytes(S, H, D, D_TIME, D_EDGE,
+                                                       backward=backward)
+        r["workspace_bytes"] = workspace_measured(torch, fn, outputs_bytes)
+        check(r["workspace_bytes"] >= r["workspace_bytes_planned"],
+              f"{what}: a call allocated {r['workspace_bytes']} bytes beyond its "
+              f"outputs, less than the planned {r['workspace_bytes_planned']}")
+
+    def record(key, kern, plain, bound, plain_reps=1, **extra):
+        r = res[key] = dict(extra, ms=time_ms(torch, kern, 5, 3),
+                            plain_ms=time_ms(torch, plain, plain_reps, 3),
+                            bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                            flops=bound[3])
+        r["bound_share"] = bound[0] / r["ms"]
+        timed[key] = kern
+        return r
+
+    with torch.no_grad():
+        forms = (("seed", EVAL_S, False), ("seed", TRAIN_S, True),
+                 ("hop2", EVAL_S, False), ("hop2", TRAIN_S, True),
+                 ("per_seed", EVAL_S, False), ("per_seed", TRAIN_S, True))
+        for form, S, train in forms:
+            if form == "seed":
+                flat, kw = layer_inputs(torch, gen, S, k=K20)
+                kern = partial(fused_temporal_layer_kernel, **flat, **kw)
+            elif form == "hop2":
+                wrap, flat, kw = hop2_inputs(torch, gen, S)
+                kern = partial(fused_temporal_layer_hop2, **wrap, **kw, mode="kernel")
+            else:
+                wrap, flat, kw = per_seed_inputs(torch, gen, S)
+                kern = partial(fused_temporal_layer_per_seed, **wrap, **kw, mode="kernel")
+            n = int(flat["seeds"].shape[0])
+            label = f"{form} S={n}"
+            plain = partial(fused_temporal_layer_ref, **flat, **kw)
+            got = kern()
+            err = compare(torch, got, plain(), f"K1 {label}")
+            live = _live_rows(torch, flat)
+            check(bool((got[~live] == 0).all()),
+                  f"K1 {label}: rows without a valid slot not exactly zero")
+            r = record(f"K1_{form}_{'train' if train else 'eval'}", kern, plain,
+                       layer_bound(torch, flat, kw), S=n, K=K20,
+                       table_rows=int(flat["k_table"].shape[0]), max_abs_err=err,
+                       rows_without_valid_slot=int((~live).sum()),
+                       negative_delta_share=_negative_delta_share(torch, flat))
+            workspace(r, "K1 " + label, kern, got.numel() * 4, n, backward=False)
+            if not train:
+                continue
+            g = torch.randn((n, H, D), generator=gen).to(DEVICE)
+            bwd = partial(fused_temporal_layer_bwd_kernel, g, **flat, **kw)
+            got = bwd()
+            errs = compare_grads(torch, got, fused_temporal_layer_bwd_ref(g, **flat, **kw),
+                                 f"K2 {label}")
+            check(bool((got["q"][~live] == 0).all()),
+                  f"K2 {label}: dq rows without a valid slot not exactly zero")
+            again = bwd()
+            bitwise = {k: bool(torch.equal(again[k], got[k])) for k in got}
+            for k_, same in bitwise.items():
+                check(same or k_ in ("k_table", "v_table"),
+                      f"K2 {label}: a second run gave other bits in {k_}")
+            r = record(f"K2_{form}_train", bwd,
+                       partial(fused_temporal_layer_bwd_ref, g, **flat, **kw),
+                       layer_bwd_bound(torch, flat, kw), S=n, K=K20,
+                       table_rows=int(flat["k_table"].shape[0]),
+                       max_abs_err=max(e[0] for e in errs.values()), errors=errs,
+                       rerun_bitwise_equal=bitwise)
+            workspace(r, "K2 " + label, bwd,
+                      sum(v.numel() * v.element_size() for v in got.values()), n,
+                      backward=True)
+            del got, again
+
+        for name, S, train in (("seeds_train", TRAIN_S, True),
+                               ("frontier_train", TRAIN_S * K20, True),
+                               ("seeds_eval", EVAL_S, False),
+                               ("frontier_eval", EVAL_S * K20, False)):
+            q = torch.randn((S, H, D), generator=dgen, device=DEVICE)
+            k = torch.randn((S, K20, H, D), generator=dgen, device=DEVICE)
+            v = torch.randn((S, K20, H, D), generator=dgen, device=DEVICE)
+            g = torch.randn((S, H, D), generator=dgen, device=DEVICE)
+            cnt = torch.where(torch.rand((S, 1), generator=dgen, device=DEVICE) < 0.8, K20,
+                              torch.randint(0, K20 + 1, (S, 1), generator=dgen,
+                                            device=DEVICE))
+            m = torch.arange(K20, device=DEVICE)[None] < cnt
+            m[::7, :16] = False   # the first chunk all masked
+            m[::11] = False       # no valid slot (padded frontier slots)
+            empty = ~m.any(-1)
+            label = f"{name} S={S} K={K20}"
+            plan = ta_plan_checked(torch, q, k, aligned_with=(v,))
+            check(plan["chunks"] == 2, f"K3 {label}: {plan['chunks']} chunks, not 2")
+            kern = partial(temporal_attention_kernel, q, k, v, m)
+            plain = partial(temporal_attention_ref, q, k, v, m)
+            got = kern()
+            err = compare(torch, got, plain(), f"K3 {label}")
+            check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
+            check(bool(torch.equal(kern(), got)), f"K3 {label}: a second launch gave other bits")
+            sdpa, sdpa_fwd_bwd, rows = sdpa_calls(q, k, v, m, g)
+            r = record(f"K3_{name}", kern, plain, attention_bound(q, k, v, m),
+                       plain_reps=2, S=S, K=K20, chunks=plan["chunks"], max_abs_err=err,
+                       rows_without_valid_slot=int(empty.sum()), valid_slots=int(m.sum()),
+                       library_rows=rows)
+            r["library_ms"] = time_ms(torch, sdpa, 5, 3)
+            timed[f"K3_{name}_library"] = sdpa
+            del got
+            if not train:
+                continue
+            ta_plan_checked(torch, q, k, backward=True, aligned_with=(v, g))
+            bwd = partial(temporal_attention_bwd_kernel, g, q, k, v, m)
+            grads = bwd()
+            want = plain_attention_grads(torch, g, q, k, v, m)
+            gerr = {n: compare(torch, a, b, f"K3b {label} d{n}")
+                    for n, a, b in zip("qkv", grads, want)}
+            dq, dk, dv = grads
+            check(bool((dq[empty] == 0).all()) and bool((dk[~m] == 0).all())
+                  and bool((dv[~m] == 0).all()),
+                  f"K3b {label}: masked slots or empty rows not exactly zero")
+            check(all(bool(torch.equal(a, b)) for a, b in zip(bwd(), grads)),
+                  f"K3b {label}: a second launch gave other bits")
+            r = record(f"K3b_{name}", bwd, partial(temporal_attention_bwd_ref, g, q, k, v, m),
+                       bwd_attention_bound(q, k, v, m), plain_reps=2, S=S, K=K20,
+                       max_abs_err=max(gerr.values()), errors=gerr,
+                       rerun_bitwise_equal=True)
+            r["library_ms"] = time_ms(torch, sdpa_fwd_bwd, 5, 3)
+            timed[f"K3b_{name}_library"] = sdpa_fwd_bwd
+            del grads, want, dq, dk, dv
+
+        # Device time of every call above, from one profiler window.
+        us = grouped_device_us(torch, timed)
+    for key, r in res.items():
+        r["device_us"] = us[key]
+        r["bound_share_device"] = 1e3 * r["bound_ms"] / us[key] if us[key] else None
+        if f"{key}_library" in us:
+            r["library_device_us"] = us[f"{key}_library"]
+    return res
+
+
+def tgat2_experiment(device_sampler: bool):
+    """``ModelSpec("tgat")`` with no kwargs (the reference's default: two
+    layers, two hops) and k = 20 on full-scale synthetic ``wikipedia``,
+    batch 200, 20 eval negatives; the device sampler (the fused path: K1
+    and K2) or the host sampler (the CLI's default; the classic path: K3
+    and K3b)."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, SamplerSpec, TrainSpec
+
+    return Experiment(data=DataSpec("wikipedia", scale=1.0), model=ModelSpec("tgat"),
+                      sampler=SamplerSpec(k=K20, device=device_sampler),
+                      train=TrainSpec(batch_size=200, eval_negatives=20))
+
+
+def checkpoint_round_trip(torch, pipe, label: str, init) -> bool:
+    """Save ``pipe`` under ``checkpoints/chip_smoke_<label>`` (removed
+    after), load ``init`` (params, optimizer state), reset, restore: the
+    parameters, the optimizer state, a stateful model's state and the
+    sampler state must come back bit-equal, on the pipeline's device."""
+    import shutil
+
+    ck_dir = ROOT / "checkpoints" / f"chip_smoke_{label}"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        saved = (_tree_clone(pipe.params), _tree_clone(pipe.opt_state),
+                 _tree_clone(pipe.model_state) if pipe.stateful else None,
+                 pipe.manager.state_dict())
+        pipe.save_checkpoint(str(ck_dir), 1)
+        pipe.load_params(init[0])
+        pipe.load_opt_state(init[1])
+        pipe.reset_epoch_state()
+        check(pipe.restore_checkpoint(str(ck_dir)) == 1, f"{label}: checkpoint step")
+        check(_trees_equal(torch, pipe.params, saved[0])
+              and _trees_equal(torch, pipe.opt_state, saved[1])
+              and pipe.params["nodes"]["emb"].device == pipe.device,
+              f"{label}: checkpoint round trip changed the parameters or optimizer")
+        if pipe.stateful:
+            check(_trees_equal(torch, pipe.model_state, saved[2])
+                  and pipe.model_state["last_update"].dtype == torch.int32
+                  and pipe.model_state["memory"].device == pipe.device,
+                  f"{label}: checkpoint round trip changed the model state")
+        restored = pipe.manager.state_dict()
+        for group in saved[3]:
+            check(_states_equal(restored[group], saved[3][group]),
+                  f"{label}: checkpoint round trip changed the sampler state")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return True
+
+
+def tgat2_run(torch, data, device_sampler: bool):
+    """2-layer TGAT through the user's entry point on one sampler:
+    ``evaluate("val")`` through the kernels (three forward launches a
+    scored batch, none in the warm pass) and with the plain version (MRR
+    within MRR_TOL, the sampler state bit-equal); the first train steps held
+    step by step (each step's three attention calls); one ``train_epoch()``
+    (three forward and three backward launches a batch); a checkpoint round
+    trip. Returns its numbers and the pipeline."""
+    label = "device" if device_sampler else "host"
+    t0 = time.perf_counter()
+    pipe = tgat2_experiment(device_sampler).compile(data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    hook = next(h for h in pipe.manager.hooks() if hasattr(h, "sampler"))
+    check(pipe.cfg.num_layers == 2 and hook.num_hops == 2 and hook.k == K20,
+          f"tgat2 {label}: built {pipe.cfg.num_layers} layers, {hook.num_hops} "
+          f"hops of {hook.k}")
+    n_val = math.ceil(pipe.val_data.num_edge_events / pipe.batch_size)
+    n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
+    fwd, bwd = (("fused_temporal_layer", "fused_temporal_layer_bwd") if device_sampler
+                else ("temporal_attention", "temporal_attention_bwd"))
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    ev, state, _ = eval_run(torch, pipe, None)
+    launched = {k: v for k, v in ev["launches"].items() if v}
+    check(launched == {fwd: 3 * n_val},
+          f"tgat2 {label} eval launched {launched} for {n_val} val batches")
+    ev_ref, state_ref, _ = eval_run(torch, pipe, "ref")
+    check(sum(ev_ref["launches"].values()) == 0, "fused='ref' launched a kernel")
+    check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
+          f"tgat2 {label} val MRR {ev['mrr']} (kernels) vs {ev_ref['mrr']} (plain)")
+    check(_states_equal(state, state_ref), f"tgat2 {label}: sampler state differs "
+                                           f"between the kernel and plain eval")
+
+    parity = step_parity(torch, pipe, TGAT2_PARITY_STEPS)
+    check(parity["calls_per_step"] == {"layer" if device_sampler else "attention": 3},
+          f"tgat2 {label}: attention calls a step {parity['calls_per_step']}")
+    pipe.load_params(init[0])
+    pipe.load_opt_state(init[1])
+    run = run_epoch(torch, pipe, None, val_mrr=False)
+    launched = {k: v for k, v in run["launches"].items() if v}
+    check(launched == {fwd: 3 * n_train, bwd: 3 * n_train},
+          f"tgat2 {label} train epoch launched {launched} for {n_train} batches")
+    check(math.isfinite(run["loss"]), f"tgat2 {label} epoch loss {run['loss']}")
+    out = dict(setup_seconds=setup_s, val_batches=n_val, train_batches=n_train,
+               eval=ev, eval_ref=ev_ref, mrr_diff=abs(ev["mrr"] - ev_ref["mrr"]),
+               step_parity=dict(steps=TGAT2_PARITY_STEPS, **parity), kernels=run,
+               checkpoint_bit_equal=checkpoint_round_trip(torch, pipe, f"tgat2_{label}", init))
+    return out, pipe
+
+
+def _cli(args):
+    return [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda"] + args
+
+
+def cli_phase(torch):
+    """``python -m repro_torch.launch.train`` on the card, killed and resumed
+    as the reference's ``tests/test_fault_tolerance.py`` drives its own: the
+    ``tg`` workload (its defaults: 2-layer TGAT, k = 20, the host sampler)
+    on wikipedia at CLI_TG_SCALE for 2 epochs, killed after epoch 0 (exit 42)
+    and resumed; the ``dtdg`` workload (GCLSTM, hourly snapshots, full
+    scale, one epoch in chunks of CLI_DTDG_CHUNK pairs) uninterrupted, and
+    killed after CLI_DTDG_KILL chunks (mid-epoch) then resumed: its final
+    test MRR equal to the uninterrupted run's to the bit. The runs of each
+    round go in parallel; every process is ended before returning."""
+    import os
+    import shutil
+
+    ck = {n: ROOT / "checkpoints" / f"chip_smoke_cli_{n}"
+          for n in ("tg", "dtdg_clean", "dtdg_crash")}
+    tg = ["--workload", "tg", "--dataset", "wikipedia", "--data-scale", CLI_TG_SCALE,
+          "--epochs", "2", "--ckpt-dir", str(ck["tg"])]
+    dtdg = ["--workload", "dtdg", "--model", "gclstm", "--dataset", "wikipedia",
+            "--data-scale", CLI_DTDG_SCALE, "--epochs", "1", "--chunk-size", CLI_DTDG_CHUNK,
+            "--discretization", "h"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+
+    def round_(runs):
+        t = time.perf_counter()
+        started = {}
+        for name, args in runs.items():
+            p = subprocess.Popen(_cli(args), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True, env=env, cwd=str(ROOT))
+            procs.append(p)
+            started[name] = p
+        out = {}
+        for name, p in started.items():
+            so, se = p.communicate(timeout=CLI_TIMEOUT_S)
+            out[name] = (p.returncode, so, se)
+        return out, time.perf_counter() - t
+
+    def final(so):
+        return [ln for ln in so.splitlines() if ln.startswith("final test MRR")][-1]
+
+    for d in ck.values():
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        first, s1 = round_({
+            "tg_killed": tg + ["--simulate-failure", "0"],
+            "dtdg_clean": dtdg + ["--ckpt-dir", str(ck["dtdg_clean"])],
+            "dtdg_killed": dtdg + ["--ckpt-dir", str(ck["dtdg_crash"]),
+                                   "--simulate-failure", CLI_DTDG_KILL]})
+        for name, want in (("tg_killed", 42), ("dtdg_clean", 0), ("dtdg_killed", 42)):
+            rc, so, se = first[name]
+            check(rc == want, f"CLI {name}: exit {rc}, expected {want}: {se[-1500:]}")
+        second, s2 = round_({"tg_resumed": tg + ["--resume"],
+                             "dtdg_resumed": dtdg + ["--ckpt-dir", str(ck["dtdg_crash"]),
+                                                     "--resume"]})
+        for name in second:
+            rc, so, se = second[name]
+            check(rc == 0 and "[resume]" in so, f"CLI {name}: exit {rc}: {se[-1500:]}")
+        check("[resume] restored epoch 0" in second["tg_resumed"][1],
+              "CLI tg: the resumed run did not start after epoch 0")
+        clean, resumed = final(first["dtdg_clean"][1]), final(second["dtdg_resumed"][1])
+        check(clean == resumed, f"CLI dtdg: resumed {resumed!r} vs uninterrupted {clean!r}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for d in ck.values():
+            shutil.rmtree(d, ignore_errors=True)
+    return dict(
+        tg=dict(args=tg, data_scale=float(CLI_TG_SCALE), final=final(second["tg_resumed"][1]),
+                stdout_killed=first["tg_killed"][1].splitlines(),
+                stdout_resumed=second["tg_resumed"][1].splitlines()),
+        dtdg=dict(args=dtdg, final_uninterrupted=clean, final_resumed=resumed,
+                  bit_identical=True,
+                  resume_line=[ln for ln in second["dtdg_resumed"][1].splitlines()
+                               if ln.startswith("[resume]")]),
+        round_seconds=[s1, s2])
+
+
+def tgat2_phase(torch, data):
+    """2-layer TGAT (the reference's default TGAT) on the card: its kernel
+    calls (``tgat2_kernels``), the device-sampler and host-sampler runs
+    (``tgat2_run``), their hop-2 neighborhoods bit-equal batch by batch
+    (``neighborhoods_check``), and the training CLI killed and resumed
+    (``cli_phase``)."""
+    t0 = time.perf_counter()
+    out = {"kernels": tgat2_kernels(torch)}
+    out["device"], dev = tgat2_run(torch, data, True)
+    out["host"], host = tgat2_run(torch, data, False)
+    out["neighborhoods"] = neighborhoods_check(torch, host, dev)
+    del dev, host
+    torch.cuda.empty_cache()
+    out["cli"] = cli_phase(torch)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3251,6 +3793,11 @@ def main() -> int:
         tg = tgn_phase(torch, wiki)
         emit({"phase": "tgn", "tolerance": {"val_mrr": MRR_TOL, "memory": ATOL,
                                             "step_loss": STEP_LOSS_TOL}, **tg})
+        t2 = tgat2_phase(torch, wiki)
+        emit({"phase": "tgat2", "tolerance": {"atol": ATOL, "rtol": RTOL,
+                                              "time_w_rtol": TIME_W_RTOL,
+                                              "val_mrr": MRR_TOL,
+                                              "step_loss": STEP_LOSS_TOL}, **t2})
         torch.cuda.empty_cache()
 
         clock = [profiler_clock(torch), profiler_clock(torch, PROFILE_MARGIN_S)]
@@ -3289,6 +3836,10 @@ def main() -> int:
                 pipe = tgn_experiment(on_device).compile(data=wiki, device=DEVICE)
                 emit({"phase": f"tgn_{label}_train_trace",
                       **trace_phase(torch, pipe, train=True)})
+                pipe = tgat2_experiment(on_device).compile(data=wiki, device=DEVICE)
+                emit({"phase": f"tgat2_{label}_trace", **trace_phase(torch, pipe)})
+                emit({"phase": f"tgat2_{label}_train_trace",
+                      **trace_phase(torch, pipe, train=True)})
     except Exception as exc:  # any failed phase: no result line
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}",
               file=sys.stderr)
@@ -3301,7 +3852,20 @@ def main() -> int:
     paths = {"eval": sl, "train": tr["kernels"], "host_eval": ho["eval"],
              "host_train": ho["kernels"], "tgn_device_eval": tg["device"]["eval"],
              "tgn_device_train": tg["device"]["kernels"],
-             "tgn_host_eval": tg["host"]["eval"], "tgn_host_train": tg["host"]["kernels"]}
+             "tgn_host_eval": tg["host"]["eval"], "tgn_host_train": tg["host"]["kernels"],
+             "tgat2_device_eval": t2["device"]["eval"],
+             "tgat2_device_train": t2["device"]["kernels"],
+             "tgat2_host_eval": t2["host"]["eval"], "tgat2_host_train": t2["host"]["kernels"]}
+    t2k = t2["kernels"]
+
+    def tgat2_shapes(prefix):
+        """The 2-layer path's numbers of one kernel, by call form and shape."""
+        keys = ("S", "K", "table_rows", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "device_us", "bound_share_device",
+                "library_ms", "library_device_us")
+        return {k[len(prefix):]: {f: r[f] for f in keys if f in r}
+                for k, r in t2k.items() if k.startswith(prefix)}
+
     by_path = {name: {p: r["launches"][name] for p, r in paths.items()
                       if r["launches"][name]}
                for name in ("fused_temporal_layer", "fused_temporal_layer_bwd",
@@ -3329,6 +3893,7 @@ def main() -> int:
         "train": {k: k1t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "device_us", "device_us_by_launch",
                                        "bound_share", "workspace_bytes")},
+        "tgat2": tgat2_shapes("K1_"),
     }, {
         "name": "fused_temporal_layer_bwd", "route": "cuda",
         "source": BWD_SOURCE, "replaces": TPU_K2,
@@ -3344,6 +3909,7 @@ def main() -> int:
         "eval": {k: k2e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                       "device_us", "device_us_by_launch",
                                       "bound_share", "workspace_bytes")},
+        "tgat2": tgat2_shapes("K2_"),
     }, {
         "name": "temporal_attention", "route": "cuda",
         "source": TA_SOURCE, "replaces": TPU_K3,
@@ -3358,6 +3924,7 @@ def main() -> int:
         "train": {k: k3t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "device_us", "library_device_us",
                                        "bound_share", "bound_share_device")},
+        "tgat2": tgat2_shapes("K3_"),
     }, {
         "name": "temporal_attention_bwd", "route": "cuda",
         "source": TA_BWD_SOURCE, "replaces": TPU_K3B,
@@ -3377,6 +3944,7 @@ def main() -> int:
                                        "bound_by", "library_ms", "device_us",
                                        "library_device_us", "bound_share",
                                        "bound_share_device")},
+        "tgat2": tgat2_shapes("K3b_"),
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": SEG_SOURCE, "replaces": TPU_K4,

@@ -1,6 +1,6 @@
 """Host layer and device-resident sampling of the PyTorch port.
 
-Numpy copies of the reference's event storage, views, granularity, batches,
+Numpy copies of the reference's event types and storage, views, granularity, batches,
 hooks, negatives and host discretization (bit-equal to ``repro.core``),
 plus the torch ``DeviceRecencySampler``, the device-recency link recipe, the
 ``PrefetchLoader`` that stages batches on a side CUDA stream, and the DTDG
@@ -10,6 +10,7 @@ snapshot recipe.
 
 from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
+from repro_torch.core.events import EdgeEvent, NodeEvent
 from repro_torch.core.granularity import EventOrderedError, TimeDelta
 from repro_torch.core.graph import DGData, DGraph, SnapshotTensor
 from repro_torch.core.hooks import BASE_ATTRS, Hook, HookManager, LambdaHook, RecipeError, resolve_order
@@ -31,12 +32,14 @@ __all__ = [
     "DGData",
     "DGraph",
     "DGDataLoader",
+    "EdgeEvent",
     "EventOrderedError",
     "Hook",
     "HookManager",
     "LambdaHook",
     "NegativeEdgeSampler",
     "NeighborBlock",
+    "NodeEvent",
     "PrefetchLoader",
     "RecipeError",
     "RecipeRegistry",

@@ -77,8 +77,10 @@ def _tgb_link(
     """Build the TGB link-prediction hook pipeline from a ``SamplerSpec``.
 
     Only ``kind="recency"`` (on the host, or with ``device=True`` on one
-    device), no ``shards`` and one hop is ported; anything else raises
-    ``NotImplementedError``.
+    device) without ``shards`` is ported; anything else raises
+    ``NotImplementedError``. ``spec.num_hops`` (``None`` is 1) selects the
+    hop-2 frontier, whose edge features a second lookup gathers
+    (``nbr2_feats``), as in the reference.
     """
     if spec.kind != "recency" or spec.shards:
         raise NotImplementedError(
@@ -86,9 +88,7 @@ def _tgb_link(
             "device (SamplerSpec(kind='recency'), host or device=True); "
             "uniform and sharded samplers are later slices (ROADMAP A)"
         )
-    if spec.num_hops not in (None, 1):
-        raise NotImplementedError(
-            "hop-2 neighborhoods wait for 2-layer TGAT (ROADMAP A)")
+    num_hops = spec.num_hops if spec.num_hops is not None else 1
     m = HookManager()
     # Padding runs FIRST so negatives/neighbor tensors come out fixed-shape;
     # stateful hooks exclude padded events via batch_mask.
@@ -105,12 +105,16 @@ def _tgb_link(
     # One shared neighbor sampler serves both keys (updates exclude padding
     # and happen once per batch).
     if spec.device:
-        m.register(DeviceRecencyNeighborHook(num_nodes, spec.k, device=device,
+        m.register(DeviceRecencyNeighborHook(num_nodes, spec.k,
+                                             num_hops=num_hops, device=device,
                                              expose_buffer=spec.expose_buffer,
                                              edge_feats=edge_feats))
     else:
-        m.register(RecencyNeighborHook(num_nodes, spec.k))
+        m.register(RecencyNeighborHook(num_nodes, spec.k, num_hops=num_hops))
     m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))
+    if num_hops == 2:
+        m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim,
+                                         prefix="nbr2"))
     m.register(DeviceTransferHook(device))
     return m
 

@@ -126,6 +126,15 @@ def _like(ref, x: np.ndarray):
     return torch.from_numpy(np.ascontiguousarray(x)).to(ref.device)
 
 
+def _produces(num_hops: int) -> set:
+    """The attributes a recency neighbor hook produces for ``num_hops``."""
+    out = {"seed_nodes", "seed_times", "nbr_ids", "nbr_times", "nbr_eids",
+           "nbr_mask"}
+    if num_hops == 2:
+        out |= {"nbr2_ids", "nbr2_times", "nbr2_eids", "nbr2_mask"}
+    return out
+
+
 class RecencyNeighborHook(Hook):
     """Temporal neighbor sampling from host recency circular buffers.
 
@@ -136,8 +145,11 @@ class RecencyNeighborHook(Hook):
     left out through ``batch_mask``). Each distinct seed node is sampled
     once and the rows are gathered back to the full seed list (the paper's
     batch-level de-duplication, §5.1, the reference's ``dedup=True``):
-    exact, since the buffers do not change while a batch is sampled. The
-    hop-2 frontier waits for 2-layer TGAT (ROADMAP A).
+    exact, since the buffers do not change while a batch is sampled. With
+    ``num_hops=2`` it also produces ``nbr2_ids/nbr2_times/nbr2_eids/
+    nbr2_mask`` (S * K, K): the hop-1 frontier's own neighborhoods, each
+    distinct frontier node sampled once from the same (pre-update) buffers,
+    padded frontier slots set to -1 / 0 / -1 / False.
 
     The sampling runs in numpy on the host (``RecencySampler``). The
     recipe's contract-free ``DeviceTransferHook`` runs before this hook
@@ -147,12 +159,14 @@ class RecencyNeighborHook(Hook):
     are those the reference's host hook gives.
     """
 
-    def __init__(self, num_nodes: int, k: int):
-        super().__init__(requires={"src", "dst", "time", "neg"}, produces={
-            "seed_nodes", "seed_times", "nbr_ids", "nbr_times", "nbr_eids",
-            "nbr_mask"})
+    def __init__(self, num_nodes: int, k: int, num_hops: int = 1):
+        if num_hops not in (1, 2):
+            raise ValueError("num_hops must be 1 or 2")
+        super().__init__(requires={"src", "dst", "time", "neg"},
+                         produces=_produces(num_hops))
         self.sampler = RecencySampler(num_nodes, k)
         self.k = k
+        self.num_hops = num_hops
 
     def reset_state(self) -> None:
         """Clear the host circular buffers (start of an epoch)."""
@@ -177,11 +191,21 @@ class RecencyNeighborHook(Hook):
             [t, t, np.repeat(t, neg.shape[1])]).astype(np.int64)
         uniq, inverse = np.unique(seed_nodes, return_inverse=True)
         blk = self.sampler.sample(uniq)
-        for key, x in (("seed_nodes", seed_nodes), ("seed_times", seed_times),
-                       ("nbr_ids", blk.nbr_ids[inverse]),
-                       ("nbr_times", blk.nbr_times[inverse]),
-                       ("nbr_eids", blk.nbr_eids[inverse]),
-                       ("nbr_mask", blk.mask[inverse])):
+        nbr_ids = blk.nbr_ids[inverse]
+        out = {"seed_nodes": seed_nodes, "seed_times": seed_times,
+               "nbr_ids": nbr_ids, "nbr_times": blk.nbr_times[inverse],
+               "nbr_eids": blk.nbr_eids[inverse], "nbr_mask": blk.mask[inverse]}
+        if self.num_hops == 2:
+            flat = nbr_ids.reshape(-1)
+            uniq2, inv2 = np.unique(np.where(flat >= 0, flat, 0),
+                                    return_inverse=True)
+            blk2 = self.sampler.sample(uniq2)
+            pad = (flat < 0)[:, None]
+            out.update(nbr2_ids=np.where(pad, -1, blk2.nbr_ids[inv2]),
+                       nbr2_times=np.where(pad, 0, blk2.nbr_times[inv2]),
+                       nbr2_eids=np.where(pad, -1, blk2.nbr_eids[inv2]),
+                       nbr2_mask=np.where(pad, False, blk2.mask[inv2]))
+        for key, x in out.items():
             batch[key] = _like(ref, x)
 
         eids = batch.meta.get("eids")
@@ -201,8 +225,9 @@ class DeviceRecencyNeighborHook(Hook):
     ``DeviceTransferHook``) and ``nbr_ids/nbr_times/nbr_eids/nbr_mask``
     (S, K) device tensors, then reveals the batch's positive edges to the
     sampler (predict-then-reveal; padded events are routed to the sink row
-    through ``batch_mask``). The hop-2 frontier waits for 2-layer TGAT
-    (ROADMAP A).
+    through ``batch_mask``). With ``num_hops=2`` it also produces the
+    frontier's ``nbr2_*`` (S * K, K) device tensors, as the host hook does
+    but without de-duplication (one gather for every frontier slot).
 
     With ``expose_buffer=True`` (the default: on CUDA the fused kernel reads
     it) each batch also carries ``nbr_buf``, the packed buffer *as sampled*:
@@ -212,11 +237,13 @@ class DeviceRecencyNeighborHook(Hook):
     ``edge_feats`` is given.
     """
 
-    def __init__(self, num_nodes: int, k: int, device="cuda",
-                 expose_buffer: Optional[bool] = None, edge_feats=None):
+    def __init__(self, num_nodes: int, k: int, num_hops: int = 1,
+                 device="cuda", expose_buffer: Optional[bool] = None,
+                 edge_feats=None):
+        if num_hops not in (1, 2):
+            raise ValueError("num_hops must be 1 or 2")
         expose_buffer = True if expose_buffer is None else expose_buffer
-        produces = {"seed_nodes", "seed_times", "nbr_ids", "nbr_times",
-                    "nbr_eids", "nbr_mask"}
+        produces = _produces(num_hops)
         if expose_buffer:
             produces |= {"nbr_buf"}
             if edge_feats is not None:
@@ -226,6 +253,7 @@ class DeviceRecencyNeighborHook(Hook):
                          produces=produces, state_key="RecencyNeighborHook")
         self.sampler = DeviceRecencySampler(num_nodes, k, device=device)
         self.k = k
+        self.num_hops = num_hops
         self.expose_buffer = expose_buffer
         self._edge_table = None
         if expose_buffer and edge_feats is not None:
@@ -261,6 +289,14 @@ class DeviceRecencyNeighborHook(Hook):
         batch["seed_nodes"], batch["seed_times"] = seed_nodes, seed_times
         batch["nbr_ids"], batch["nbr_times"] = blk.nbr_ids, blk.nbr_times
         batch["nbr_eids"], batch["nbr_mask"] = blk.nbr_eids, blk.mask
+        if self.num_hops == 2:
+            flat = blk.nbr_ids.reshape(-1)
+            blk2 = self.sampler.sample(torch.clamp(flat, min=0))
+            pad = (flat < 0)[:, None]
+            batch["nbr2_ids"] = torch.where(pad, -1, blk2.nbr_ids)
+            batch["nbr2_times"] = torch.where(pad, 0, blk2.nbr_times)
+            batch["nbr2_eids"] = torch.where(pad, -1, blk2.nbr_eids)
+            batch["nbr2_mask"] = torch.where(pad, False, blk2.mask)
 
         eids = batch.meta.get("eids")
         n = len(src)

@@ -1,2 +1,2 @@
-"""Checkpoints of the port (``checkpoint``); meshes and collectives wait
-for the multi-GPU slices."""
+"""Checkpoints of the port (``checkpoint``: synchronous and background
+writes); meshes and collectives wait for the multi-GPU slices."""

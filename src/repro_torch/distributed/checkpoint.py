@@ -14,18 +14,23 @@ helpers) for nested dicts and tuples of tensors and numpy arrays:
   * writes go to ``ckpt_<step>.tmp``, every file and the directory are
     fsynced, then one atomic rename publishes it; a torn directory (leaf
     missing or of the wrong size) is skipped by ``latest_step``;
-  * retention keeps the newest ``KEEP`` (3) checkpoints.
+  * retention keeps the newest ``keep`` (default ``KEEP``, 3) checkpoints;
+  * ``AsyncCheckpointer`` writes in a background thread what ``save()``
+    copied to the host before it returned, so a tree that is updated in
+    place afterwards (the port's AdamW steps in place) is saved as it was.
 
 Restored leaves are host numpy arrays; callers move them to their device.
-The reference's elastic resharding (``mesh=``) and ``AsyncCheckpointer``
-wait for the multi-GPU and LM slices.
+The reference's elastic resharding (``mesh=``) waits for the multi-GPU
+slice.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,13 +73,14 @@ def _fsync_path(path: str) -> None:
 
 
 def save(ckpt_dir: str, step: int, tree, *,
-         extra_meta: Optional[Dict[str, Any]] = None) -> str:
+         extra_meta: Optional[Dict[str, Any]] = None, keep: int = KEEP) -> str:
     """Synchronous checkpoint write; returns the checkpoint path.
 
     Every leaf and the manifest are fsynced inside the tmp directory, the
     directory itself is fsynced, then one ``os.rename`` publishes it and
     the parent is fsynced: a crash leaves the previous checkpoint or the
-    new one, never a torn directory that parses as valid."""
+    new one, never a torn directory that parses as valid. Then only the
+    newest ``keep`` checkpoints stay."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{step}")
     tmp = path + ".tmp"
@@ -108,7 +114,7 @@ def save(ckpt_dir: str, step: int, tree, *,
         shutil.rmtree(path)
     os.rename(tmp, path)  # atomic publish
     _fsync_path(ckpt_dir)
-    _retain(ckpt_dir, KEEP)
+    _retain(ckpt_dir, keep)
     return path
 
 
@@ -213,3 +219,88 @@ def assemble(flat: Dict[str, Any], target):
         return flat[prefix[:-1]]
 
     return build(target, "")
+
+
+def _snapshot(tree):
+    """A host copy of every leaf of ``tree`` (dicts, tuples and lists kept):
+    numpy arrays that share no memory with the tree's tensors or arrays."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_snapshot(v) for v in tree)
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    return np.array(tree, copy=True)
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: copy to the host, enqueue, train on.
+
+    ``save`` copies the tree to host memory before it returns (a device
+    tensor's copy waits for the work queued on it), so in-place updates
+    after it do not reach the checkpoint; a worker thread writes it with
+    ``save`` (``keep`` newest kept). ``wait()`` drains the queue and raises
+    a failed write on the caller's thread; ``close()`` waits and stops the
+    worker (a second call does nothing).
+    """
+
+    def __init__(self, ckpt_dir: str, keep: int = KEEP):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            step, host_tree, extra = item
+            try:
+                save(self.ckpt_dir, step, host_tree, extra_meta=extra,
+                     keep=self.keep)
+            except BaseException as e:  # surfaced on the next save/wait
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _check_worker(self):
+        """Raise a buffered write failure (or a dead worker) here, on the
+        caller's thread."""
+        if self._err:
+            raise RuntimeError("async checkpoint write failed") from self._err
+        if not self._thread.is_alive() and not self._closed:
+            raise RuntimeError("async checkpoint worker thread died")
+
+    def save(self, step: int, tree, *,
+             extra_meta: Optional[Dict[str, Any]] = None) -> None:
+        """Copy ``tree`` to the host now and queue its write as ``step``."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer is closed")
+        self._check_worker()
+        self._q.put((step, _snapshot(tree), extra_meta))
+
+    def wait(self) -> None:
+        """Block until every queued write is on disk (polling the worker's
+        liveness, so a dead worker cannot hang it); raise a failed write."""
+        with self._q.all_tasks_done:
+            while self._q.unfinished_tasks:
+                if not self._thread.is_alive():
+                    break
+                self._q.all_tasks_done.wait(timeout=0.1)
+        self._check_worker()
+
+    def close(self) -> None:
+        """Wait for the queued writes, then stop the worker."""
+        if self._closed:
+            return
+        self.wait()
+        self._closed = True
+        self._q.put(None)
+        self._thread.join(timeout=10)

@@ -15,6 +15,8 @@ from repro_torch.kernels.temporal_attention.kernel import (
 from repro_torch.kernels.temporal_attention.ops import (
     fused_recency_attention,
     fused_temporal_layer,
+    fused_temporal_layer_hop2,
+    fused_temporal_layer_per_seed,
     temporal_attention,
 )
 from repro_torch.kernels.temporal_attention.ref import (
@@ -37,7 +39,9 @@ __all__ = [
     "fused_temporal_layer_bwd_kernel",
     "fused_temporal_layer_bwd_ref",
     "fused_temporal_layer_factored_ref",
+    "fused_temporal_layer_hop2",
     "fused_temporal_layer_kernel",
+    "fused_temporal_layer_per_seed",
     "fused_temporal_layer_ref",
     "reset_launches",
     "ta_plan",

@@ -7,6 +7,11 @@
 ``fused_temporal_layer``     — the TGAT layer-0 compute over the packed
                                recency buffer, with the time and edge bias
                                folds (kernel ``fused_temporal_layer``).
+``fused_temporal_layer_hop2`` — the layer over an (S, K) hop-1 frontier
+                               (2-layer TGAT's layer 0 for the frontier).
+``fused_temporal_layer_per_seed`` — each seed over its own K rows of an
+                               (S * K, H, D) table (2-layer TGAT's final
+                               hop), as a synthetic packed buffer.
 ``fused_recency_attention``  — the ids-only variant (no bias groups).
 
 ``mode``:
@@ -118,6 +123,52 @@ def fused_temporal_layer(q, k_table, v_table, seeds, seed_times, buf, *,
         q.contiguous(), k_table.contiguous(), v_table.contiguous(), seeds,
         seed_times, buf.to(torch.int32).contiguous(),
         *(kw[name] for name in _ARGS[6:]))
+
+
+def fused_temporal_layer_hop2(q, k_table, v_table, frontier, frontier_times,
+                              buf, **kw):
+    """The fused layer over the (S, K) hop-1 frontier: each frontier node
+    queries the buffer at its own interaction time (2-layer TGAT's layer 0
+    for the frontier). ``frontier``/``frontier_times``: (S, K) ids (padding
+    -1) and times; q: (S * K, H, D), row-major over the frontier. Returns
+    (S * K, H, D), exact zero rows (and gradients) for padded slots. A
+    frontier slot's time may precede the times in the buffer row it reads
+    (negative deltas): the delta is taken in int32 as everywhere. Keyword
+    arguments as in ``fused_temporal_layer``."""
+    return fused_temporal_layer(
+        q, k_table, v_table, frontier.reshape(-1).to(torch.int32),
+        frontier_times.reshape(-1).to(torch.int32), buf, **kw)
+
+
+def fused_temporal_layer_per_seed(q, k_rows, v_rows, seed_times, nbr_times,
+                                  nbr_mask, *, nbr_eids=None, **kw):
+    """Each seed attends over its own K rows of an (S * K, H, D) table
+    (2-layer TGAT's final hop: keys and values from computed hop-1
+    embeddings). q: (S, H, D); k_rows/v_rows: (S * K, H, D), row ``s*K + j``
+    seed s's j-th neighbor; seed_times: (S,); nbr_times/nbr_mask (and
+    ``nbr_eids`` for the edge group): (S, K). Built as a synthetic (S, K, 3)
+    buffer (ids the row indices where valid, else -1) over the rows table,
+    so the same kernel pair serves it; the table gradient lands on rows
+    that exactly one seed reads. Returns (S, H, D)."""
+    seeds, buf = per_seed_buffer(nbr_times, nbr_mask, nbr_eids)
+    return fused_temporal_layer(q, k_rows, v_rows, seeds,
+                                seed_times.to(torch.int32), buf, **kw)
+
+
+def per_seed_buffer(nbr_times, nbr_mask, nbr_eids=None):
+    """The per-seed form's ``(seeds, buf)``: seeds ``0 .. S-1`` over an
+    (S, K, 3) int32 buffer whose row s names rows ``s*K .. s*K + K-1`` of
+    the table where ``nbr_mask`` holds (else -1), with ``nbr_times`` and
+    ``nbr_eids`` (-1 where masked or not given)."""
+    S, K = nbr_mask.shape
+    dev = nbr_mask.device
+    rows = torch.arange(S * K, dtype=torch.int32, device=dev).reshape(S, K)
+    ids = torch.where(nbr_mask, rows, -1)
+    eids = (torch.full((S, K), -1, dtype=torch.int32, device=dev)
+            if nbr_eids is None
+            else torch.where(nbr_mask, nbr_eids.to(torch.int32), -1))
+    buf = torch.stack([ids, nbr_times.to(torch.int32), eids], dim=-1)
+    return torch.arange(S, dtype=torch.int32, device=dev), buf
 
 
 def fused_recency_attention(q, k_table, v_table, seeds, buf_ids, *,

@@ -99,11 +99,22 @@ def node_feature_init(gen, num_nodes: int, d_static: int, d_model: int,
     return p
 
 
+def gather_rows(table, ids):
+    """``table[ids]`` for a (N, d) table and integer ids of any shape, by
+    ``F.embedding``: the same rows, but its backward sorts the ids and sums
+    each id's rows in parallel, where indexing's backward
+    (``indexing_backward_kernel`` on CUDA) walks a row's duplicates one
+    after another. A hot node appears thousands of times among 2-layer
+    TGAT's hop-2 ids: that walk took ~104 ms of a host-sampler train step
+    on an H100 (``scripts/tgat2_profile.py``; PERF.md)."""
+    return torch.nn.functional.embedding(ids, table)
+
+
 def node_features(params, ids, static_feats=None):
     """Gather per-id node features (learned embedding + optional static
     projection); rows with id < 0 (padding) are zeroed."""
     safe = torch.clamp(ids, min=0).long()
-    h = params["emb"][safe]
+    h = gather_rows(params["emb"], safe)
     if static_feats is not None and "static_proj" in params:
         h = h + dense(params["static_proj"], static_feats[safe])
     return torch.where((ids >= 0)[..., None], h, 0.0)

@@ -6,7 +6,8 @@
 runs in the hand-written CUDA kernel ``temporal_attention`` on the GPU;
 ``fused_seed_neighbor_attention`` is its fused twin over the device
 sampler's packed buffer, whose attention runs in the fused layer's kernel
-(``kernels.temporal_attention``).
+(``kernels.temporal_attention``); ``fused_final_hop_attention`` is 2-layer
+TGAT's final hop over per-seed tables of computed frontier embeddings.
 """
 
 from __future__ import annotations
@@ -120,6 +121,53 @@ def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,
     att = fused_temporal_layer(
         q, k_tab, v_tab, seeds.to(torch.int32), seed_times.to(torch.int32),
         buf, time_w=time_params["w"], time_b=time_params["b"],
+        wt_k=wt_k, wt_v=wt_v, edge_feats=edge_table if use_edge else None,
+        we_k=we_k, we_v=we_v, mode=mode,
+    )
+    return dense(params["o"], att.reshape(-1, d_model))
+
+
+def fused_final_hop_attention(params, nbr_kv_in, q_in, seed_times, nbr_times,
+                              nbr_eids, nbr_mask, time_params,
+                              d_edge: int = 0, edge_table=None,
+                              num_heads: int = 2, mode: str = "auto"):
+    """2-layer TGAT's final hop, fused: each seed attends over its own K
+    computed hop-1 embeddings.
+
+    The frontier rows are projected flat into per-seed (S * K, H, Dh) k/v
+    tables (dense bias folded in) and handed to
+    ``fused_temporal_layer_per_seed``, which adds the edge and time terms
+    per slot (in the CUDA kernel on the GPU), so no (S, K, ·) float tensor
+    is built, forward or backward.
+
+    nbr_kv_in: (S * K, d_node) frontier embeddings (row ``s*K + j`` is seed
+    s's j-th neighbor); q_in: (S, Dq) query inputs (projected here);
+    seed_times: (S,); nbr_times/nbr_eids/nbr_mask: (S, K); time_params:
+    ``time_encode`` params; edge_table: (E, d_edge) edge-feature storage (or
+    None). ``mode`` is forwarded. Returns (S, d_model).
+    """
+    from repro_torch.kernels.temporal_attention import (
+        fused_temporal_layer_per_seed,
+    )
+
+    d_model = params["o"]["w"].shape[0]
+    h = num_heads
+    dh = d_model // h
+    d_node = nbr_kv_in.shape[-1]
+    wk, wv = params["k"], params["v"]
+    k_rows = (nbr_kv_in @ wk["w"][:d_node] + wk["b"]).reshape(-1, h, dh)
+    v_rows = (nbr_kv_in @ wv["w"][:d_node] + wv["b"]).reshape(-1, h, dh)
+    use_edge = bool(d_edge) and edge_table is not None
+    we_k = wk["w"][d_node:d_node + d_edge] if use_edge else None
+    we_v = wv["w"][d_node:d_node + d_edge] if use_edge else None
+    wt_k = wk["w"][d_node + d_edge:]
+    wt_v = wv["w"][d_node + d_edge:]
+    q = _split_heads(dense(params["q"], q_in), h)  # (S, H, Dh)
+    att = fused_temporal_layer_per_seed(
+        q, k_rows, v_rows, seed_times.to(torch.int32),
+        nbr_times.to(torch.int32), nbr_mask,
+        nbr_eids=nbr_eids if use_edge else None,
+        time_w=time_params["w"], time_b=time_params["b"],
         wt_k=wt_k, wt_v=wt_v, edge_feats=edge_table if use_edge else None,
         we_k=we_k, we_v=we_v, mode=mode,
     )

@@ -1,2 +1,3 @@
-"""The CTDG link pipeline of the port: training, evaluation, checkpoints
-and the epoch engine (``loop``), and the MRR metric (``metrics``)."""
+"""The link pipelines of the port: training, evaluation, checkpoints and
+the epoch engine (``loop``), the legacy trainer names (``tg_trainer``) and
+the MRR metric (``metrics``)."""

@@ -1,7 +1,7 @@
 """Link prediction pipelines (CTDG and DTDG) and the epoch engine.
 
   * ``CTDGLinkPipeline`` — the TGB link recipe over the recency sampler
-    (on the host, or on the device), 1-layer TGAT or TGN and one-vs-many
+    (on the host, or on the device), TGAT (1 or 2 layers) or TGN and one-vs-many
     MRR, on one device (``device="cuda"`` by default): ``train_epoch``
     (masked BCE, backward through the fused layer's backward kernel or the
     classic attention's recompute, AdamW), ``evaluate(split)`` and
@@ -277,7 +277,8 @@ class _ParamsAndOptimizer:
 class CTDGLinkPipeline(_ParamsAndOptimizer):
     """CTDG link prediction over the TGB link recipe.
 
-    Ported: ``model_name`` "tgat" (1 layer) and "tgn", with
+    Ported: ``model_name`` "tgat" (1 or 2 layers; the hooks sample one hop
+    per layer unless ``SamplerSpec.num_hops`` says otherwise) and "tgn", with
     ``SamplerSpec(kind="recency")`` on the host (the default, as in the
     reference) or with ``device=True``; other models and samplers raise
     ``NotImplementedError``. Parameters are leaf tensors with
@@ -346,10 +347,16 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         self.model_state = (self._model.init_state(self.cfg, self.device)
                             if self.stateful else None)
 
+        # TGAT samples one hop per layer (at most two); the spec overrides.
+        num_hops = (min(2, self.cfg.num_layers) if model_name == "tgat"
+                    else 1)
+        if spec.num_hops is not None:
+            num_hops = spec.num_hops
         self.manager = RecipeRegistry.build(
             RECIPE_TGB_LINK,
             num_nodes=n,
-            spec=SamplerSpec(kind="recency", k=self.cfg.k, device=spec.device,
+            spec=SamplerSpec(kind="recency", k=self.cfg.k, num_hops=num_hops,
+                             device=spec.device,
                              expose_buffer=spec.expose_buffer),
             batch_size=batch_size,
             eval_negatives=eval_negatives,

@@ -57,7 +57,9 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.kernels.ssd_chunk.kernel",
             "repro_torch.kernels.ssd_chunk.ops",
             "repro_torch.kernels.ssd_chunk.ref",
-            "repro_torch.serve.decode", "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.serve.decode", "repro_torch.launch.serve",
+            "repro_torch.launch.train", "repro_torch.train.tg_trainer",
+            "repro_torch.core.events"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -1,4 +1,5 @@
-"""1-layer TGAT in the port holds against the JAX model on the same batch.
+"""1-layer TGAT in the port holds against the JAX model on the same batch
+(2-layer TGAT: ``tests/test_torch_tgat2.py``).
 
 The reference's parameters move into the port with ``params_from_jax``;
 one batch from the device-recency recipe goes through JAX
@@ -111,7 +112,16 @@ def test_fused_and_classic_paths_agree_and_keep_ties(setup):
         fpos.numpy()[:, None], same.shape)[same]).all()
 
 
-def test_two_layers_are_not_ported_yet():
-    cfg = tgat.TGATConfig(num_nodes=5, num_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgat.init(cfg, torch.Generator().manual_seed(0))
+def test_default_tgat_builds_two_layers_and_two_hops():
+    """``ModelSpec("tgat")`` with no kwargs is the reference's default
+    TGAT: two layers, and the pipeline's hooks sample two hops of k = 20."""
+    from repro_torch.data import generate as tgenerate
+    from repro_torch.tg import Experiment, ModelSpec
+
+    pipe = Experiment(model=ModelSpec("tgat")).compile(data=tgenerate("tiny"),
+                                                        device="cpu")
+    assert pipe.cfg.num_layers == 2 and pipe.cfg.k == 20
+    assert {"attn_1", "merge_1"} <= set(pipe.params)
+    hook = next(h for h in pipe.manager.hooks()
+                if type(h).__name__ == "RecencyNeighborHook")
+    assert hook.num_hops == 2 and hook.k == 20
