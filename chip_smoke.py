@@ -109,8 +109,31 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    (2-layer TGAT, wikipedia at data scale 0.1) and ``dtdg`` (GCLSTM, full
    scale, killed mid-epoch), the resumed ``dtdg`` run's test MRR equal to
    the uninterrupted run's to the bit.
+12. ``zoo``    — the rest of the CTDG zoo and the uniform samplers, through
+   the user's entry point on full-scale ``wikipedia``, each model at its
+   reference config's defaults: GraphMixer (device recency sampler, k =
+   20), DyGFormer (device recency, k = 32) and TPNet (no neighbors; its
+   recipe samples k = 1), each with ``evaluate("val")`` (seconds, MRR, no
+   kernel of the port launched; DyGFormer's peak device memory), the first
+   3 train steps on the card against the same steps on the CPU (loss
+   within 1e-5 relative, every gradient within 1e-4 of its leaf's largest
+   entry + 1e-7, TPNet's new state), one ``train_epoch()`` and val MRR
+   after it, a checkpoint round trip (TPNet's ``{"R", "last"}`` too) and
+   the card's busy share over 30 train steps; then 2-layer TGAT over
+   ``SamplerSpec(kind="uniform")`` on the host and with ``device=True``:
+   ``evaluate("val")`` through K3 (three launches a scored batch) and with
+   the plain version (MRR within 1e-4, the sampler's state and counter
+   equal), 3 train steps held step by step (K3 and K3b on each call's own
+   inputs), one ``train_epoch()`` (three K3 and three K3b a batch), the
+   busy share; and the two samplers against each other: the CSR bit-equal,
+   over a whole val pass the hop-1 masks and every valid-prefix
+   start and length (hop 1 and hop 2) bit-equal, every valid slot an event
+   of its seed strictly before its query time, the prefix search's time
+   over a scored batch's 88,000 hop-2 queries on each, a device epoch
+   replayed after ``reset_state`` bit for bit, and a host <-> device
+   ``state_dict`` interchange.
 
-12. ``lm_kernels`` — the LM serving slice's kernels against their plain
+13. ``lm_kernels`` — the LM serving slice's kernels against their plain
    versions on the card at its shapes (B = 4, S = 4,096, bfloat16): K5
    (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
    window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
@@ -126,7 +149,7 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
    rows, steep decay in both types, groups incl. two at N = 128, P and N
    not multiples of 16); ``profiler_clock`` before the phase.
-13. ``lm``     — first the decode attentions' products (``layers.
+14. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
    shapes, within DECODE_TOL, with the memory a call allocates held below
@@ -170,7 +193,8 @@ copy kernels and the largest copies by shape). ``build`` and
 ``lm_kernels`` report ``profiler_clock`` (what the profiler keeps of two
 known launches, early and late in the process). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
-K2, K3, K3b, K4, K5 and K6 with their launches on the main paths; K1w, off
+K2, K3, K3b, K4, K5 and K6 with their launches on the main paths, the
+uniform samplers' runs among K3's and K3b's; K1w, off
 the path, beside them), the card's name and power limit as nvidia-smi reports them,
 and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
@@ -2358,7 +2382,9 @@ def checkpoint_round_trip(torch, pipe, label: str, init) -> bool:
     """Save ``pipe`` under ``checkpoints/chip_smoke_<label>`` (removed
     after), load ``init`` (params, optimizer state), reset, restore: the
     parameters, the optimizer state, a stateful model's state and the
-    sampler state must come back bit-equal, on the pipeline's device."""
+    sampler state must come back bit-equal, on the pipeline's device (the
+    model state in its own dtypes: TGN's int32 ``last_update``, TPNet's
+    int32 ``last``)."""
     import shutil
 
     ck_dir = ROOT / "checkpoints" / f"chip_smoke_{label}"
@@ -2374,12 +2400,13 @@ def checkpoint_round_trip(torch, pipe, label: str, init) -> bool:
         check(pipe.restore_checkpoint(str(ck_dir)) == 1, f"{label}: checkpoint step")
         check(_trees_equal(torch, pipe.params, saved[0])
               and _trees_equal(torch, pipe.opt_state, saved[1])
-              and pipe.params["nodes"]["emb"].device == pipe.device,
+              and all(t.device == pipe.device for t in _flat(pipe.params).values()),
               f"{label}: checkpoint round trip changed the parameters or optimizer")
         if pipe.stateful:
+            got, want = _flat(pipe.model_state), _flat(saved[2])
             check(_trees_equal(torch, pipe.model_state, saved[2])
-                  and pipe.model_state["last_update"].dtype == torch.int32
-                  and pipe.model_state["memory"].device == pipe.device,
+                  and all(got[k].dtype == want[k].dtype and got[k].device == pipe.device
+                          for k in want),
                   f"{label}: checkpoint round trip changed the model state")
         restored = pipe.manager.state_dict()
         for group in saved[3]:
@@ -2537,6 +2564,401 @@ def tgat2_phase(torch, data):
     del dev, host
     torch.cuda.empty_cache()
     out["cli"] = cli_phase(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The rest of the CTDG zoo (GraphMixer, DyGFormer, TPNet) and 2-layer TGAT
+# over the uniform samplers
+# ---------------------------------------------------------------------------
+ZOO_PARITY_STEPS = 3
+ZOO_LOSS_RTOL = 1e-5
+# Train steps before, and in, each loop's profiler window (its busy share).
+BUSY_SKIP, BUSY_STEPS = 5, 30
+# Each zoo model at its reference config's defaults (full width) and its
+# sampler: k (TPNet samples no neighbors: its recipe runs at k = 1 over the
+# default host recency spec) and whether it is the device recency sampler.
+ZOO = (("graphmixer", 20, True), ("dygformer", 32, True), ("tpnet", 20, False))
+
+
+def zoo_experiment(name, sampler):
+    """``ModelSpec(name)`` with no kwargs (the reference config's defaults)
+    on full-scale synthetic ``wikipedia``, batch 200, 20 eval negatives."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
+
+    return Experiment(data=DataSpec("wikipedia", scale=1.0), model=ModelSpec(name),
+                      sampler=sampler, train=TrainSpec(batch_size=200, eval_negatives=20))
+
+
+def _launched():
+    """The port's kernel launch counts that are not zero."""
+    from repro_torch.kernels.segment_reduce import LAUNCHES as SEG
+    from repro_torch.kernels.temporal_attention import LAUNCHES as TA
+
+    return {k: v for k, v in {**TA, **SEG}.items() if v}
+
+
+def card_vs_cpu_steps(torch, pipe, n_steps: int):
+    """The first ``n_steps`` train steps on the card against the same steps
+    on the CPU: each batch's loss and every gradient computed again by the
+    model's ``link_scores`` on CPU copies of the parameters, the batch and
+    the model state. Held: the loss within ZOO_LOSS_RTOL relative, every
+    gradient within GRAD_RTOL of its leaf's largest entry + GRAD_FLOOR, and
+    a stateful model's new state (float leaves within ATOL/RTOL, integer
+    leaves bit-equal). The card's update moves the run on. Returns the
+    worst errors."""
+    from repro_torch.core import TRAIN_KEY
+    from repro_torch.models.tg.common import bce_link_loss
+    from repro_torch.tree import tree_map
+
+    worst = {"loss_rel": 0.0, "grad_rel": 0.0, "grad_name": None, "state_abs": 0.0}
+    name = pipe.model_name
+    pipe.reset_epoch_state()
+    with pipe.manager.activate(TRAIN_KEY):
+        for i, batch in zip(range(n_steps), pipe._loader(pipe.train_data)):
+            loss, new_state = pipe._loss_and_state(batch)
+            gtree = pipe._grads(loss)
+            params = tree_map(lambda t: t.detach().cpu().requires_grad_(True), pipe.params)
+            host = {k: batch[k].cpu() if isinstance(batch[k], torch.Tensor) else batch[k]
+                    for k in batch.keys()}
+            if pipe.stateful:
+                (pos, neg), want_state = pipe._model.link_scores(
+                    params, pipe.cfg, tree_map(lambda t: t.cpu(), pipe.model_state),
+                    host, pipe.batch_size)
+            else:
+                pos, neg = pipe._model.link_scores(params, pipe.cfg, host, pipe.batch_size)
+            want = bce_link_loss(pos, neg, host["batch_mask"])
+            rel = abs(loss.item() - want.item()) / max(abs(want.item()), 1e-30)
+            check(rel <= ZOO_LOSS_RTOL,
+                  f"{name} step {i}: loss {loss.item()} (card) vs {want.item()} (CPU)")
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            leaves = _flat(params)
+            cpu = dict(zip(leaves, torch.autograd.grad(want, list(leaves.values()),
+                                                       allow_unused=True)))
+            for leaf, g in _flat(gtree).items():
+                g = g.cpu()
+                w = torch.zeros_like(g) if cpu[leaf] is None else cpu[leaf]
+                scale = float(w.abs().max())
+                err = float((g - w).abs().max())
+                check(torch.allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_RTOL * scale + GRAD_FLOOR),
+                      f"{name} step {i}: gradient {leaf} card vs CPU differs by {err} "
+                      f"(leaf max {scale})")
+                rel = err / (scale + GRAD_FLOOR / GRAD_RTOL)
+                if rel > worst["grad_rel"]:
+                    worst.update(grad_rel=rel, grad_name=leaf)
+            if pipe.stateful:
+                want_flat = _flat(want_state)
+                for leaf, t in _flat(new_state).items():
+                    if t.dtype.is_floating_point:
+                        worst["state_abs"] = max(worst["state_abs"], compare(
+                            torch, t, want_flat[leaf].to(t.device),
+                            f"{name} step {i} state {leaf}"))
+                    else:
+                        check(torch.equal(t.cpu(), want_flat[leaf]),
+                              f"{name} step {i}: state {leaf} card vs CPU differs")
+            pipe._update(gtree)
+            if pipe.stateful:
+                pipe.model_state = new_state
+    torch.cuda.synchronize()
+    return worst
+
+
+def train_busy(torch, pipe):
+    """The card's busy share in a loop's train steps: ``torch.profiler``
+    over BUSY_STEPS steps (after BUSY_SKIP) as ``train_epoch`` runs them,
+    between idle margins of PROFILE_MARGIN_S that lie outside the timed
+    window. ``device_window``'s numbers; ``None`` entries where the
+    profiler kept no device event (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import TRAIN_KEY
+
+    pipe.reset_epoch_state()
+    with pipe.manager.activate(TRAIN_KEY):
+        it = iter(pipe._loader(pipe.train_data))
+        try:
+            for _, batch in zip(range(BUSY_SKIP), it):
+                pipe._train_step(batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                t0 = time.perf_counter()
+                for _, batch in zip(range(BUSY_STEPS), it):
+                    pipe._train_step(batch)
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+                time.sleep(PROFILE_MARGIN_S)
+        finally:
+            it.close()
+    out = device_window(prof, wall_us)
+    if not out["device_events"]:
+        out.update(device_busy_ms=None, device_idle_share=None)
+    out["device_busy_share"] = (None if out["device_idle_share"] is None
+                                else 1.0 - out["device_idle_share"])
+    out["steps"] = BUSY_STEPS
+    return out
+
+
+def zoo_run(torch, data, name: str, k: int, device_sampler: bool):
+    """One zoo model through the user's entry point: ``evaluate("val")``
+    (seconds, MRR, no kernel launched; the peak device memory it allocates
+    above what was held before), the first ZOO_PARITY_STEPS train steps on
+    the card against the CPU (``card_vs_cpu_steps``), one ``train_epoch()``
+    (seconds, ms per step, no kernel launched) and val MRR after it, a
+    checkpoint round trip (TPNet's ``{"R", "last"}`` included), and the
+    card's busy share in its train steps (``train_busy``)."""
+    from repro_torch.tg import SamplerSpec
+
+    t0 = time.perf_counter()
+    pipe = zoo_experiment(name, SamplerSpec(k=k, device=device_sampler)).compile(
+        data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    hook = next(h for h in pipe.manager.hooks() if hasattr(h, "sampler"))
+    check(hook.k == (1 if name == "tpnet" else k) and "nbr_buf" not in hook.produces,
+          f"{name}: hook samples {hook.k} and produces {sorted(hook.produces)}")
+    n_val = math.ceil(pipe.val_data.num_edge_events / pipe.batch_size)
+    n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches_all()
+    ev, _, _ = eval_run(torch, pipe, None)
+    peak = torch.cuda.max_memory_allocated() - held
+    check(not _launched(), f"{name} eval launched {_launched()}")
+    steps = card_vs_cpu_steps(torch, pipe, ZOO_PARITY_STEPS)
+    pipe.load_params(init[0])
+    pipe.load_opt_state(init[1])
+    _reset_launches_all()
+    run = run_epoch(torch, pipe, None)
+    check(not _launched() and math.isfinite(run["loss"]),
+          f"{name} train epoch: loss {run['loss']}, launched {_launched()}")
+    out = dict(setup_seconds=setup_s, val_batches=n_val, train_batches=n_train,
+               config={k_: v for k_, v in vars(pipe.cfg).items()},
+               sampler=dict(kind="recency", device=device_sampler, k=hook.k),
+               eval=ev, eval_peak_bytes_above_held=peak,
+               card_vs_cpu=dict(steps=ZOO_PARITY_STEPS, **steps), epoch=run,
+               checkpoint_bit_equal=checkpoint_round_trip(torch, pipe, f"zoo_{name}", init),
+               train_busy=train_busy(torch, pipe))
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reset_launches_all():
+    from repro_torch.kernels import segment_reduce, temporal_attention
+
+    segment_reduce.reset_launches()
+    temporal_attention.reset_launches()
+
+
+def uniform_experiment(device_sampler: bool):
+    """``ModelSpec("tgat")`` with no kwargs (2 layers, 2 hops) over
+    ``SamplerSpec(kind="uniform", k=20)``, on the host or with
+    ``device=True``, full-scale synthetic ``wikipedia``, batch 200, 20 eval
+    negatives: the classic path (K3, and K3b in the backward)."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, SamplerSpec, TrainSpec
+
+    return Experiment(data=DataSpec("wikipedia", scale=1.0), model=ModelSpec("tgat"),
+                      sampler=SamplerSpec(kind="uniform", k=K20, device=device_sampler),
+                      train=TrainSpec(batch_size=200, eval_negatives=20))
+
+
+def uniform_run(torch, data, device_sampler: bool):
+    """2-layer TGAT over one uniform sampler: ``evaluate("val")`` through K3
+    (three launches a scored batch, nothing else) and with the plain
+    version (MRR within MRR_TOL, the sampler's state, counter included,
+    equal); the first train steps held step by step (``step_parity``: K3
+    and K3b on each of a step's three attention calls); one
+    ``train_epoch()`` with three K3 and three K3b launches a batch; the
+    busy share of its train steps. Returns its numbers and the pipeline."""
+    from repro_torch.core.tg_hooks import DeviceUniformNeighborHook, UniformNeighborHook
+
+    label = "device" if device_sampler else "host"
+    t0 = time.perf_counter()
+    pipe = uniform_experiment(device_sampler).compile(data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    hook = next(h for h in pipe.manager.hooks() if hasattr(h, "sampler"))
+    want_cls = DeviceUniformNeighborHook if device_sampler else UniformNeighborHook
+    check(type(hook) is want_cls and pipe.cfg.num_layers == 2 and hook.num_hops == 2
+          and hook.k == K20, f"uniform {label}: built {type(hook).__name__}, "
+          f"{pipe.cfg.num_layers} layers, {hook.num_hops} hops of {hook.k}")
+    n_val = math.ceil(pipe.val_data.num_edge_events / pipe.batch_size)
+    n_train = math.ceil(pipe.train_data.num_edge_events / pipe.batch_size)
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+
+    ev, state, _ = eval_run(torch, pipe, None)
+    launched = {k: v for k, v in ev["launches"].items() if v}
+    check(launched == {"temporal_attention": 3 * n_val},
+          f"uniform {label} eval launched {launched} for {n_val} val batches")
+    ev_ref, state_ref, _ = eval_run(torch, pipe, "ref")
+    check(sum(ev_ref["launches"].values()) == 0, "fused='ref' launched a kernel")
+    check(abs(ev["mrr"] - ev_ref["mrr"]) <= MRR_TOL,
+          f"uniform {label} val MRR {ev['mrr']} (K3) vs {ev_ref['mrr']} (plain)")
+    check(_states_equal(state, state_ref) and int(state["counter"]) > 0,
+          f"uniform {label}: sampler state differs between the kernel and plain eval")
+
+    parity = step_parity(torch, pipe, TGAT2_PARITY_STEPS)
+    check(parity["calls_per_step"] == {"attention": 3},
+          f"uniform {label}: attention calls a step {parity['calls_per_step']}")
+    pipe.load_params(init[0])
+    pipe.load_opt_state(init[1])
+    run = run_epoch(torch, pipe, None, val_mrr=False)
+    launched = {k: v for k, v in run["launches"].items() if v}
+    check(launched == {"temporal_attention": 3 * n_train,
+                       "temporal_attention_bwd": 3 * n_train},
+          f"uniform {label} train epoch launched {launched} for {n_train} batches")
+    check(math.isfinite(run["loss"]), f"uniform {label} epoch loss {run['loss']}")
+    out = dict(setup_seconds=setup_s, val_batches=n_val, train_batches=n_train,
+               eval=ev, eval_ref=ev_ref, mrr_diff=abs(ev["mrr"] - ev_ref["mrr"]),
+               counter_after_eval=int(state["counter"]),
+               step_parity=dict(steps=TGAT2_PARITY_STEPS, **parity), kernels=run,
+               train_busy=train_busy(torch, pipe))
+    return out, pipe
+
+
+def _slot_checks(torch, ev, seeds, query_t, ids, times, eids, mask, what):
+    """Every valid slot is an event of its seed (either endpoint, the other
+    one the slot's neighbor, at the slot's time) strictly before its query
+    time: so inside the seed's strict-past prefix."""
+    s, q = seeds.long()[:, None].expand(mask.shape)[mask], query_t.long()[:, None].expand(mask.shape)[mask]
+    e, n, t = eids.long()[mask], ids.long()[mask], times.long()[mask]
+    src, dst, et = ev
+    ok = (((src[e] == s) & (dst[e] == n)) | ((dst[e] == s) & (src[e] == n))) & (et[e] == t) & (t < q)
+    check(bool(ok.all()), f"{what}: a drawn slot is not a strict-past event of its seed")
+
+
+def uniform_checks(torch, host, dev):
+    """The two uniform samplers against each other: the CSR bit-equal; over
+    the warm pass and a whole val pass, batch by batch, the seeds and hop-1
+    masks bit-equal, each seed's valid-prefix start and length bit-equal
+    between the samplers (hop 1, and hop 2 on both frontiers), each hop-2
+    mask equal to the prefix test on its own frontier (padded slots
+    masked), and every valid slot of both an event of its seed strictly
+    before its query time. The time of each sampler's prefix search over a
+    scored batch's hop-2 frontier (88,000 queries; the host's with its
+    ``np.unique`` dedup, the device's over every query; CUDA events for the
+    device). A device epoch (the train split's batches) replayed after
+    ``reset_state``, bit-equal; last, a host <-> device ``state_dict``
+    interchange: the host sampler loads the device's state (CSR, counter),
+    and a fresh device sampler loading the host's state draws what the
+    device sampler draws."""
+    import numpy as np
+
+    from repro_torch.core import EVAL_KEY, TRAIN_KEY
+    from repro_torch.core.device_uniform import DeviceUniformSampler
+
+    hh = next(h for h in host.manager.hooks() if hasattr(h, "sampler"))
+    dh = next(h for h in dev.manager.hooks() if hasattr(h, "sampler"))
+    hs, ds = hh.sampler, dh.sampler
+    csr = ("adj_nbr", "adj_t", "adj_e", "indptr")
+    a, b = hh.state_dict(), dh.state_dict()
+    for key in csr:
+        check(np.array_equal(a[key], b[key]), f"uniform CSR {key} differs host vs device")
+    data = dev.data
+    ev = tuple(torch.as_tensor(np.asarray(x, np.int64), device=DEVICE)
+               for x in (data.src, data.dst, data.edge_t))
+    host_ms, dev_ms = [], []
+
+    def prefixes(seeds, q, what):
+        hst, hn = hs.prefix(seeds.cpu().numpy(), q.cpu().numpy())
+        dst_, dn = ds.prefix(seeds, q)
+        check(np.array_equal(hst, dst_.cpu().numpy()) and np.array_equal(hn, dn.cpu().numpy()),
+              f"{what}: valid prefixes differ between the host and device samplers")
+        return dn
+
+    for p in (host, dev):
+        p.reset_epoch_state()
+    n = 0
+    with host.manager.activate(EVAL_KEY), dev.manager.activate(EVAL_KEY):
+        for x, y in zip(host._loader(host.val_data), dev._loader(dev.val_data)):
+            what = f"val batch {n}"
+            for name in ("seed_nodes", "seed_times", "nbr_mask"):
+                check(torch.equal(x[name], y[name]), f"{what}: {name} differs")
+            seeds, st = y["seed_nodes"], y["seed_times"]
+            nv = prefixes(seeds, st, what + " hop 1")
+            check(torch.equal(y["nbr_mask"], (nv > 0)[:, None].expand_as(y["nbr_mask"])),
+                  f"{what}: hop-1 mask is not the prefix test")
+            for z, label in ((x, "host"), (y, "device")):
+                _slot_checks(torch, ev, seeds, st, z["nbr_ids"], z["nbr_times"],
+                             z["nbr_eids"], z["nbr_mask"], f"{what} {label} hop 1")
+                f_ids, f_t = z["nbr_ids"].reshape(-1), z["nbr_times"].reshape(-1)
+                pad = f_ids < 0
+                safe, qt = torch.where(pad, 0, f_ids), torch.where(pad, 0, f_t)
+                if label == "device":
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    hs.prefix(safe.cpu().numpy(), qt.cpu().numpy())
+                    host_ms.append(1e3 * (time.perf_counter() - t))
+                    dev_ms.append(time_ms(torch, lambda: ds.prefix(safe, qt), 5, trials=1))
+                nv2 = prefixes(safe, qt, f"{what} {label} hop 2")
+                want = ((nv2 > 0) & ~pad)[:, None].expand_as(z["nbr2_mask"])
+                check(torch.equal(z["nbr2_mask"], want),
+                      f"{what} {label}: hop-2 mask is not the prefix test")
+                _slot_checks(torch, ev, safe, qt, z["nbr2_ids"], z["nbr2_times"],
+                             z["nbr2_eids"], z["nbr2_mask"], f"{what} {label} hop 2")
+            n += 1
+    check(n == math.ceil(dev.val_data.num_edge_events / dev.batch_size),
+          "uniform check: val batch count")
+
+    def epoch_draws():
+        out = []
+        dev.reset_epoch_state()
+        with dev.manager.activate(TRAIN_KEY):
+            for z in dev._loader(dev.train_data):
+                out.append(torch.cat([torch.stack([z[f"{p}_ids"], z[f"{p}_times"],
+                                                   z[f"{p}_eids"]]).reshape(3, -1)
+                                      for p in ("nbr", "nbr2")], 1))
+        return out
+
+    first = epoch_draws()
+    again = epoch_draws()
+    check(len(first) == len(again) and all(torch.equal(u, v) for u, v in zip(first, again)),
+          "the device sampler's epoch differs after reset_state")
+    counter = int(dh.state_dict()["counter"])
+    del first, again
+
+    state = dh.state_dict()
+    hh.load_state_dict(state)
+    back = hh.state_dict()
+    check(all(np.array_equal(back[k], state[k]) for k in csr)
+          and int(back["counter"]) == counter, "host sampler did not load the device's state")
+    twin = DeviceUniformSampler(ds.num_nodes, ds.k, seed=ds._seed, device=DEVICE)
+    twin.load_state_dict(back)
+    seeds = torch.as_tensor(data.dst[:4400].astype(np.int64), device=DEVICE)
+    qt = torch.as_tensor(data.edge_t[-4400:].astype(np.int64), device=DEVICE)
+    u, v = ds.sample(seeds, qt), twin.sample(seeds, qt)
+    check(all(torch.equal(getattr(u, f), getattr(v, f))
+              for f in ("nbr_ids", "nbr_times", "nbr_eids", "mask")),
+          "a device sampler loaded from the host's state draws differently")
+    return dict(csr_entries=int(len(a["adj_nbr"])), csr_bit_equal=True, val_batches=n,
+                masks_and_prefixes_bit_equal=True, draws_strict_past=True,
+                hop2_prefix_ms_per_scored_batch={
+                    "host_np_unique_dedup": statistics.median(host_ms),
+                    "device_every_query": statistics.median(dev_ms),
+                    "queries": int(y["nbr_ids"].numel())},
+                epoch_replay_bit_equal=True, epoch_sample_calls=counter,
+                state_interchange=True)
+
+
+def zoo_phase(torch, data):
+    """The rest of the CTDG zoo and the uniform samplers on the card:
+    GraphMixer (device recency, k 20), DyGFormer (device recency, k 32) and
+    TPNet (``zoo_run`` each), then 2-layer TGAT over the host and the
+    device uniform sampler (``uniform_run`` each) and the two samplers
+    against each other (``uniform_checks``)."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, k, on_device in ZOO:
+        out[name] = zoo_run(torch, data, name, k, on_device)
+    out["uniform"] = {}
+    out["uniform"]["host"], host = uniform_run(torch, data, False)
+    out["uniform"]["device"], dev = uniform_run(torch, data, True)
+    out["uniform"]["samplers"] = uniform_checks(torch, host, dev)
+    del host, dev
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3799,6 +4221,13 @@ def main() -> int:
                                               "val_mrr": MRR_TOL,
                                               "step_loss": STEP_LOSS_TOL}, **t2})
         torch.cuda.empty_cache()
+        zo = zoo_phase(torch, wiki)
+        emit({"phase": "zoo", "tolerance": {"val_mrr": MRR_TOL, "step_loss": STEP_LOSS_TOL,
+                                            "card_vs_cpu_loss_rel": ZOO_LOSS_RTOL,
+                                            "grad_rtol": GRAD_RTOL, "grad_floor": GRAD_FLOOR,
+                                            "state": ATOL},
+              "nvidia_smi": nvidia_smi_line(), **zo})
+        torch.cuda.empty_cache()
 
         clock = [profiler_clock(torch), profiler_clock(torch, PROFILE_MARGIN_S)]
         lmk, lmk_cases = lm_kernels_phase(torch)
@@ -3855,7 +4284,10 @@ def main() -> int:
              "tgn_host_eval": tg["host"]["eval"], "tgn_host_train": tg["host"]["kernels"],
              "tgat2_device_eval": t2["device"]["eval"],
              "tgat2_device_train": t2["device"]["kernels"],
-             "tgat2_host_eval": t2["host"]["eval"], "tgat2_host_train": t2["host"]["kernels"]}
+             "tgat2_host_eval": t2["host"]["eval"], "tgat2_host_train": t2["host"]["kernels"],
+             **{f"uniform_{label}_{part}": zo["uniform"][label][key]
+                for label in ("host", "device")
+                for part, key in (("eval", "eval"), ("train", "kernels"))}}
     t2k = t2["kernels"]
 
     def tgat2_shapes(prefix):

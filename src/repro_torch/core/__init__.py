@@ -2,7 +2,8 @@
 
 Numpy copies of the reference's event types and storage, views, granularity, batches,
 hooks, negatives and host discretization (bit-equal to ``repro.core``),
-plus the torch ``DeviceRecencySampler``, the device-recency link recipe, the
+plus the torch ``DeviceRecencySampler`` and ``DeviceUniformSampler``, the
+host ``UniformSampler``, the link recipe's recency and uniform branches, the
 ``PrefetchLoader`` that stages batches on a side CUDA stream, and the DTDG
 ``SnapshotTensor`` built on the device by ``snapshot_tensor`` with its
 snapshot recipe.
@@ -10,6 +11,7 @@ snapshot recipe.
 
 from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
+from repro_torch.core.device_uniform import DeviceUniformSampler
 from repro_torch.core.events import EdgeEvent, NodeEvent
 from repro_torch.core.granularity import EventOrderedError, TimeDelta
 from repro_torch.core.graph import DGData, DGraph, SnapshotTensor
@@ -23,12 +25,13 @@ from repro_torch.core.recipes import (
     TRAIN_KEY,
     RecipeRegistry,
 )
-from repro_torch.core.sampler import NeighborBlock
+from repro_torch.core.sampler import NeighborBlock, UniformSampler
 
 __all__ = [
     "Batch",
     "BASE_ATTRS",
     "DeviceRecencySampler",
+    "DeviceUniformSampler",
     "DGData",
     "DGraph",
     "DGDataLoader",
@@ -45,6 +48,7 @@ __all__ = [
     "RecipeRegistry",
     "SnapshotTensor",
     "TimeDelta",
+    "UniformSampler",
     "resolve_order",
     "snapshot_negatives",
     "snapshot_tensor",

@@ -1,13 +1,15 @@
 """Pre-defined hook recipes (paper §4).
 
 ``RECIPE_TGB_LINK`` builds the TGB link-prediction hook pipeline: random
-training negatives, one-vs-many eval negatives, recency neighbors,
-edge-feature lookup, padding and the device transfer. The port carries both
-recency branches of ``repro.core.recipes``: the host sampler
-(``SamplerSpec(kind="recency")``, the reference's default) and the
-device-resident one (``device=True``). ``RECIPE_DTDG_SNAPSHOT`` builds the
-DTDG snapshot link pipeline's per-snapshot negatives. The uniform samplers
-and the other recipes are not part of the port yet.
+training negatives, one-vs-many eval negatives, recency or uniform
+neighbors, edge-feature lookup, padding and the device transfer. The port
+carries the four one-device branches of ``repro.core.recipes``: the
+recency sampler on the host (``SamplerSpec(kind="recency")``, the
+reference's default) or the device (``device=True``), and the uniform
+sampler (``kind="uniform"``) on either; the mesh-sharded samplers
+(``shards``) wait for the multi-GPU slice. ``RECIPE_DTDG_SNAPSHOT`` builds
+the DTDG snapshot link pipeline's per-snapshot negatives. The other recipes
+are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ from repro_torch.core.hooks import HookManager
 from repro_torch.core.tg_hooks import (
     DeviceRecencyNeighborHook,
     DeviceTransferHook,
+    DeviceUniformNeighborHook,
     EdgeFeatureLookupHook,
     NegativeEdgeHook,
     PadBatchHook,
     RecencyNeighborHook,
     SnapshotNegativeHook,
     TGBEvalNegativesHook,
+    UniformNeighborHook,
 )
 
 RECIPE_TGB_LINK = "tgb_link"
@@ -76,17 +80,19 @@ def _tgb_link(
 ) -> HookManager:
     """Build the TGB link-prediction hook pipeline from a ``SamplerSpec``.
 
-    Only ``kind="recency"`` (on the host, or with ``device=True`` on one
-    device) without ``shards`` is ported; anything else raises
-    ``NotImplementedError``. ``spec.num_hops`` (``None`` is 1) selects the
-    hop-2 frontier, whose edge features a second lookup gathers
-    (``nbr2_feats``), as in the reference.
+    ``kind`` "recency" or "uniform", on the host or with ``device=True`` on
+    one device; ``shards`` raises ``NotImplementedError`` (ROADMAP A5).
+    ``spec.num_hops`` (``None`` is 1) selects the hop-2 frontier, whose edge
+    features a second lookup gathers (``nbr2_feats``), as in the reference.
+    A uniform hook's adjacency must be built (``hook.build(...)`` over the
+    stream) before the first batch; ``CTDGLinkPipeline`` builds it over the
+    full stream, as the reference's does.
     """
-    if spec.kind != "recency" or spec.shards:
+    if spec.shards:
         raise NotImplementedError(
-            "the port's RECIPE_TGB_LINK carries the recency branches on one "
-            "device (SamplerSpec(kind='recency'), host or device=True); "
-            "uniform and sharded samplers are later slices (ROADMAP A)"
+            "the port's RECIPE_TGB_LINK runs its samplers on one device; "
+            "mesh-sharded samplers (SamplerSpec.shards) wait for the "
+            "multi-GPU slice (ROADMAP A5)"
         )
     num_hops = spec.num_hops if spec.num_hops is not None else 1
     m = HookManager()
@@ -104,7 +110,13 @@ def _tgb_link(
     )
     # One shared neighbor sampler serves both keys (updates exclude padding
     # and happen once per batch).
-    if spec.device:
+    if spec.kind == "uniform":
+        hook = DeviceUniformNeighborHook if spec.device else UniformNeighborHook
+        kw = {"device": device} if spec.device else {}
+        m.register(hook(num_nodes, spec.k, include_negatives=True, seed=seed,
+                        num_hops=num_hops,
+                        checkpoint_adjacency=spec.checkpoint_adjacency, **kw))
+    elif spec.device:
         m.register(DeviceRecencyNeighborHook(num_nodes, spec.k,
                                              num_hops=num_hops, device=device,
                                              expose_buffer=spec.expose_buffer,

@@ -10,8 +10,14 @@ sequential insertion puts them), and a lookup is one gather.
 
 The device twin, ``core.device_sampler.DeviceRecencySampler``, keeps the same
 buffers on the card; the two share the ``state_dict`` checkpoint contract
-and give the same neighborhoods. ``UniformSampler`` and ``csr_from_state``
-come with the uniform slice.
+and give the same neighborhoods.
+
+``UniformSampler`` draws K neighbors uniformly (with replacement) from each
+seed's strict past over a CSR-by-time adjacency built once per stream, with
+numpy draws from ``default_rng((seed, counter))``: bit-equal to the
+reference's host sampler. ``csr_from_state`` reads the uniform samplers'
+shared checkpoint contract; the device twin is
+``core.device_uniform.DeviceUniformSampler``.
 """
 
 from __future__ import annotations
@@ -174,3 +180,143 @@ class SequentialRecencySampler(RecencySampler):
             _insert(int(src[i]), int(dst[i]), int(t[i]), int(eids[i]))
             if not self.directed:
                 _insert(int(dst[i]), int(src[i]), int(t[i]), int(eids[i]))
+
+
+def csr_from_state(state: dict, num_nodes: int):
+    """Rebuild ``(nodes, nbrs, times, eids)`` int64 arrays from the shared
+    uniform-sampler checkpoint contract (``adj_nbr/adj_t/adj_e/indptr``).
+    The node column is implicit in ``indptr`` (node-major layout). Used by
+    both uniform samplers, so the contract cannot diverge between them."""
+    indptr = np.asarray(state["indptr"], dtype=np.int64)
+    nodes = np.repeat(np.arange(num_nodes, dtype=np.int64), np.diff(indptr))
+    return (nodes,
+            np.asarray(state["adj_nbr"], dtype=np.int64),
+            np.asarray(state["adj_t"], dtype=np.int64),
+            np.asarray(state["adj_e"], dtype=np.int64))
+
+
+def doubled_edges(src, dst, t, eids=None):
+    """Both directions of every event as int64 ``(nodes, nbrs, times,
+    eids)``: event i gives (src_i -> dst_i) at i and (dst_i -> src_i) at
+    E + i. ``eids`` defaults to the event index."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    t = np.asarray(t, dtype=np.int64)
+    eids = (np.arange(len(src), dtype=np.int64) if eids is None
+            else np.asarray(eids, dtype=np.int64))
+    return (np.concatenate([src, dst]), np.concatenate([dst, src]),
+            np.concatenate([t, t]), np.concatenate([eids, eids]))
+
+
+class UniformSampler:
+    """Uniform temporal neighbor sampling over *all* past neighbors.
+
+    Built over a static CSR-by-time adjacency of an edge stream (strict
+    ``t < query_t`` filtering at sample time keeps it leak-free even when
+    built over the full stream); per query, the seed's prefix of neighbors
+    with t < query_t comes from one global binary search on a composite
+    ``(node, time rank)`` key, and K draws are taken uniformly from it (with
+    replacement). Draws use ``default_rng((seed, counter))`` per call, so
+    epochs replay exactly after ``reset_state``. The store-built form
+    (``build_from_store``) waits for the storage slice (ROADMAP A4).
+    """
+
+    def __init__(self, num_nodes: int, k: int, seed: int = 0,
+                 checkpoint_adjacency: bool = True):
+        self.num_nodes = int(num_nodes)
+        self.k = int(k)
+        self._seed = seed
+        self._counter = 0
+        self._built = False
+        self.checkpoint_adjacency = bool(checkpoint_adjacency)
+
+    def build(self, src, dst, t, eids: Optional[np.ndarray] = None) -> None:
+        """Build the CSR-by-time adjacency (both directions per event)."""
+        nodes, nbrs, times, es = doubled_edges(src, dst, t, eids)
+        order = np.lexsort((times, nodes))  # by node, then time
+        self._set_adjacency(nodes[order], nbrs[order], times[order], es[order])
+
+    def build_from_store(self, store, **kwargs) -> None:
+        """Not ported: event stores come with the storage slice."""
+        raise NotImplementedError(
+            "building a uniform sampler from an EventStore waits for the "
+            "port's storage slice (ROADMAP A4); use build(src, dst, t, eids)")
+
+    def _set_adjacency(self, nodes, nbrs, times, es) -> None:
+        """Install a node-major, time-ascending adjacency and derive the
+        search structures (unique-time table and composite key)."""
+        self._adj_nbr = nbrs
+        self._adj_t = times
+        self._adj_e = es
+        counts = np.bincount(nodes, minlength=self.num_nodes)
+        self._indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        # Ranking times through the unique-value table keeps the key range
+        # at num_nodes * (#distinct times + 1); the key is globally sorted
+        # because the adjacency is node-major with times ascending.
+        self._tvals = np.unique(self._adj_t)
+        self._key_base = len(self._tvals) + 1
+        tranks = np.searchsorted(self._tvals, self._adj_t)
+        self._adj_key = nodes * self._key_base + tranks
+        self._built = True
+
+    def reset_state(self) -> None:
+        """Rewind the draw counter (start of an epoch); the adjacency is a
+        pure function of the stream and is kept."""
+        self._counter = 0
+
+    def prefix(self, seeds, query_t):
+        """``(starts, n_valid)`` (B,) int64: where each seed's adjacency run
+        starts and how many of its entries lie strictly before
+        ``query_t``. Duplicate ``(seed, query_t)`` pairs (the whole hop-2
+        frontier of a one-vs-many eval batch) are searched once: the
+        binary search runs on the unique keys and is gathered back."""
+        if not self._built:
+            raise RuntimeError("UniformSampler.build() must be called first")
+        seeds = np.asarray(seeds, dtype=np.int64)
+        query_t = np.asarray(query_t, dtype=np.int64)
+        starts = self._indptr[seeds]
+        qranks = np.searchsorted(self._tvals, query_t, side="left")
+        keys = seeds * self._key_base + qranks
+        uniq_keys, inverse = np.unique(keys, return_inverse=True)
+        ends = np.searchsorted(self._adj_key, uniq_keys,
+                               side="left")[inverse.reshape(keys.shape)]
+        return starts, ends - starts
+
+    def sample(self, seeds, query_t) -> NeighborBlock:
+        """Draw K uniform neighbors per seed, strictly before ``query_t``
+        (one counter step). Seeds with no past neighbor come back fully
+        masked: ids/eids -1, times 0."""
+        starts, n_valid = self.prefix(seeds, query_t)
+        B, K = len(starts), self.k
+        has = n_valid > 0
+        rng = np.random.default_rng((self._seed, self._counter))
+        self._counter += 1
+        draw = rng.integers(0, np.maximum(n_valid, 1)[:, None], size=(B, K))
+        idx = np.minimum(starts[:, None] + draw, len(self._adj_nbr) - 1)
+        ids = np.where(has[:, None], self._adj_nbr[idx], -1)
+        times = np.where(has[:, None], self._adj_t[idx], 0)
+        eids = np.where(has[:, None], self._adj_e[idx], -1)
+        mask = np.broadcast_to(has[:, None], (B, K)).copy()
+        return NeighborBlock(ids, times, eids, mask)
+
+    # -- checkpoint contract (shared with DeviceUniformSampler) ----------
+    def state_dict(self) -> dict:
+        """CSR arrays and the draw counter; loads into either uniform
+        sampler (of either package). With ``checkpoint_adjacency=False`` only
+        the counter is saved: the restoring side rebuilds the adjacency from
+        the stream with ``build``."""
+        if not self._built or not self.checkpoint_adjacency:
+            return {"counter": np.int64(self._counter)}
+        return {
+            "adj_nbr": self._adj_nbr, "adj_t": self._adj_t,
+            "adj_e": self._adj_e, "indptr": self._indptr,
+            "counter": np.int64(self._counter),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore from either uniform sampler's ``state_dict``. Counter-only
+        states keep (or await) an adjacency built from the stream."""
+        self._counter = int(state["counter"])
+        if "adj_nbr" not in state:
+            return
+        self._set_adjacency(*csr_from_state(state, self.num_nodes))

@@ -1,13 +1,15 @@
-"""Hook library for the recency link recipe (paper Table 2).
+"""Hook library for the link recipes (paper Table 2).
 
-PyTorch port of the recency branches of ``repro.core.tg_hooks``: padding,
-train/eval negatives, recency neighbors on the host (``RecencyNeighborHook``,
-numpy circular buffers with batch-level de-duplication) or on the device
+PyTorch port of ``repro.core.tg_hooks``' link hooks: padding, train/eval
+negatives, recency neighbors on the host (``RecencyNeighborHook``, numpy
+circular buffers with batch-level de-duplication) or on the device
 (``DeviceRecencyNeighborHook``, with the packed buffer exposed for the fused
-attention), edge-feature lookup and the device transfer. Negatives are drawn
-with numpy exactly as in the reference, so they are bit-equal.
-``SnapshotNegativeHook`` serves the DTDG snapshot recipe. The uniform
-samplers and the analytics hooks are not part of the port yet.
+attention), uniform neighbors on the host (``UniformNeighborHook``) or on
+the device (``DeviceUniformNeighborHook``), one or two hops each,
+edge-feature lookup and the device transfer. Negatives are drawn with numpy
+exactly as in the reference, so they are bit-equal.
+``SnapshotNegativeHook`` serves the DTDG snapshot recipe. The analytics
+hooks are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import torch
 
 from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
+from repro_torch.core.device_uniform import DeviceUniformSampler
 from repro_torch.core.hooks import Hook
 from repro_torch.core.negatives import NegativeEdgeSampler, snapshot_negatives
-from repro_torch.core.sampler import RecencySampler
+from repro_torch.core.sampler import RecencySampler, UniformSampler
 from repro_torch.device import resolve_device
 
 _EDGE_TABLE_CACHE: OrderedDict = OrderedDict()
@@ -135,6 +138,19 @@ def _produces(num_hops: int) -> set:
     return out
 
 
+def _seed_rows(batch, include_negatives: bool):
+    """The batch's seeds ``[src | dst | neg...]`` and their query times, as
+    host int64 arrays."""
+    src, dst, t = _host(batch["src"]), _host(batch["dst"]), _host(batch["time"])
+    seeds, times = [src, dst], [t, t]
+    if include_negatives and "neg" in batch:
+        neg = _host(batch["neg"])
+        seeds.append(neg.reshape(-1))
+        times.append(np.repeat(t, neg.shape[1]))
+    return (np.concatenate(seeds).astype(np.int64),
+            np.concatenate(times).astype(np.int64))
+
+
 class RecencyNeighborHook(Hook):
     """Temporal neighbor sampling from host recency circular buffers.
 
@@ -185,10 +201,7 @@ class RecencyNeighborHook(Hook):
         to the sampler."""
         ref = batch["src"]
         src, dst, t = _host(ref), _host(batch["dst"]), _host(batch["time"])
-        neg = _host(batch["neg"])  # (B, Nneg)
-        seed_nodes = np.concatenate([src, dst, neg.reshape(-1)]).astype(np.int64)
-        seed_times = np.concatenate(
-            [t, t, np.repeat(t, neg.shape[1])]).astype(np.int64)
+        seed_nodes, seed_times = _seed_rows(batch, True)
         uniq, inverse = np.unique(seed_nodes, return_inverse=True)
         blk = self.sampler.sample(uniq)
         nbr_ids = blk.nbr_ids[inverse]
@@ -280,11 +293,7 @@ class DeviceRecencyNeighborHook(Hook):
             batch["nbr_buf"] = self.sampler.packed_buffer
             if self._edge_table is not None:
                 batch["edge_feat_table"] = self._edge_table
-        neg = _host(batch["neg"])  # (B, Nneg)
-        seed_nodes = np.concatenate([src, dst, neg.reshape(-1)]).astype(np.int64)
-        seed_times = np.concatenate(
-            [t, t, np.repeat(t, neg.shape[1])]).astype(np.int64)
-
+        seed_nodes, seed_times = _seed_rows(batch, True)
         blk = self.sampler.sample(seed_nodes)
         batch["seed_nodes"], batch["seed_times"] = seed_nodes, seed_times
         batch["nbr_ids"], batch["nbr_times"] = blk.nbr_ids, blk.nbr_times
@@ -306,6 +315,122 @@ class DeviceRecencyNeighborHook(Hook):
         valid = _host(batch["batch_mask"]) if "batch_mask" in batch \
             else np.ones(n, bool)
         self.sampler.update(src, dst, t, eids_full, valid=valid)
+        return batch
+
+
+class UniformNeighborHook(Hook):
+    """Uniform temporal neighbor sampling over a pre-built adjacency.
+
+    Seeds are the batch's ``[src | dst | neg...]`` nodes at the batch event
+    times; each draws K uniform neighbors from its strict past (``t <
+    query_t``), so a once-per-stream ``build`` leaks nothing. Stateless
+    across batches apart from the draw counter (checkpointed through
+    ``state_dict``). With ``num_hops=2`` each hop-1 slot becomes a hop-2 seed
+    queried at its own interaction time; a padded hop-1 slot is queried as
+    node 0 at t = 0 and its row is then masked (-1 / 0 / -1 / False).
+
+    The sampling runs in numpy on the host (``UniformSampler``, bit-equal to
+    the reference's); as ``RecencyNeighborHook`` does, the hook hands its
+    outputs to the device the batch's events are on.
+    """
+
+    def __init__(self, num_nodes: int, k: int, include_negatives: bool = False,
+                 seed: int = 0, num_hops: int = 1,
+                 checkpoint_adjacency: bool = True):
+        if num_hops not in (1, 2):
+            raise ValueError("num_hops must be 1 or 2")
+        requires = {"src", "dst", "time"} | ({"neg"} if include_negatives else set())
+        super().__init__(requires=requires, produces=_produces(num_hops),
+                         state_key="UniformNeighborHook")
+        self.sampler = self._make_sampler(num_nodes, k, seed,
+                                          checkpoint_adjacency)
+        self.k = k
+        self.num_hops = num_hops
+        self.include_negatives = include_negatives
+
+    def _make_sampler(self, num_nodes, k, seed, checkpoint_adjacency):
+        return UniformSampler(num_nodes, k, seed=seed,
+                              checkpoint_adjacency=checkpoint_adjacency)
+
+    def build(self, src, dst, t, eids=None) -> "UniformNeighborHook":
+        """Build the sampler's CSR-by-time adjacency; returns self."""
+        self.sampler.build(src, dst, t, eids)
+        return self
+
+    def reset_state(self) -> None:
+        """Rewind the sampler's draw counter (epochs replay exactly)."""
+        self.sampler.reset_state()
+
+    def state_dict(self) -> dict:
+        """Checkpoint the sampler (shared host/device uniform contract)."""
+        return self.sampler.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore state saved by either uniform sampler."""
+        self.sampler.load_state_dict(state)
+
+    def _hop2(self, blk, where):
+        """The recursive frontier: every hop-1 slot queried at its own time;
+        ``where`` is ``np.where`` or ``torch.where``."""
+        flat_ids = blk.nbr_ids.reshape(-1)
+        flat_t = blk.nbr_times.reshape(-1)
+        invalid = flat_ids < 0
+        blk2 = self.sampler.sample(where(invalid, 0, flat_ids),
+                                   where(invalid, 0, flat_t))
+        pad = invalid[:, None]
+        return {"nbr2_ids": where(pad, -1, blk2.nbr_ids),
+                "nbr2_times": where(pad, 0, blk2.nbr_times),
+                "nbr2_eids": where(pad, -1, blk2.nbr_eids),
+                "nbr2_mask": where(pad, False, blk2.mask)}
+
+    def __call__(self, batch: Batch) -> Batch:
+        """Sample the batch's uniform temporal neighborhoods."""
+        seed_nodes, seed_times = _seed_rows(batch, self.include_negatives)
+        blk = self.sampler.sample(seed_nodes, seed_times)
+        out = {"seed_nodes": seed_nodes, "seed_times": seed_times,
+               "nbr_ids": blk.nbr_ids, "nbr_times": blk.nbr_times,
+               "nbr_eids": blk.nbr_eids, "nbr_mask": blk.mask}
+        if self.num_hops == 2:
+            out.update(self._hop2(blk, np.where))
+        for key, x in out.items():
+            batch[key] = _like(batch["src"], x)
+        return batch
+
+
+class DeviceUniformNeighborHook(UniformNeighborHook):
+    """Device-resident uniform temporal neighbor sampling.
+
+    Same contract, seeds and ``num_hops=2`` frontier as
+    ``UniformNeighborHook``, backed by ``DeviceUniformSampler``: the neighbor
+    tensors are born on the device (int32, bool mask), ``seed_nodes`` /
+    ``seed_times`` are host int64 that ``DeviceTransferHook`` stages, as the
+    device recency hook gives them. The checkpoint key is the host twin's,
+    so either hook restores the other's state.
+    """
+
+    def __init__(self, num_nodes: int, k: int, include_negatives: bool = False,
+                 seed: int = 0, num_hops: int = 1,
+                 checkpoint_adjacency: bool = True, device="cuda"):
+        self._device = resolve_device(device)
+        super().__init__(num_nodes, k, include_negatives=include_negatives,
+                         seed=seed, num_hops=num_hops,
+                         checkpoint_adjacency=checkpoint_adjacency)
+
+    def _make_sampler(self, num_nodes, k, seed, checkpoint_adjacency):
+        return DeviceUniformSampler(num_nodes, k, seed=seed,
+                                    device=self._device,
+                                    checkpoint_adjacency=checkpoint_adjacency)
+
+    def __call__(self, batch: Batch) -> Batch:
+        """Sample the batch's uniform temporal neighborhoods on the device."""
+        seed_nodes, seed_times = _seed_rows(batch, self.include_negatives)
+        blk = self.sampler.sample(seed_nodes, seed_times)
+        batch["seed_nodes"], batch["seed_times"] = seed_nodes, seed_times
+        batch["nbr_ids"], batch["nbr_times"] = blk.nbr_ids, blk.nbr_times
+        batch["nbr_eids"], batch["nbr_mask"] = blk.nbr_eids, blk.mask
+        if self.num_hops == 2:
+            for key, x in self._hop2(blk, torch.where).items():
+                batch[key] = x
         return batch
 
 

@@ -3,8 +3,15 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.nn.linear import dense, dense_init
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's exact
+    default would miss the float32 tolerance against the reference)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_init(gen, dims, bias: bool = True, device="cpu"):

@@ -3,8 +3,8 @@
 Same specs and serialization as ``repro.tg.Experiment``. ``compile`` covers
 both link quadrants on ``device`` (``"cuda"`` by default), with
 ``TrainSpec.telemetry`` as a JSONL ``FileSink``: the event stream
-(``CTDGLinkPipeline``: TGAT or TGN over the host or the device recency
-sampler) and, with ``DataSpec.discretization`` set, the
+(``CTDGLinkPipeline``: TGAT, TGN, GraphMixer, DyGFormer or TPNet over
+the recency or the uniform sampler, on the host or the device) and, with ``DataSpec.discretization`` set, the
 snapshots (``DTDGLinkPipeline``); ``run`` compiles, trains through
 ``TrainLoop`` and evaluates. The node quadrants, out-of-core storage and
 data sharding raise ``NotImplementedError`` until their slices land.

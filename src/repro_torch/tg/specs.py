@@ -115,10 +115,11 @@ class SamplerSpec(_SpecBase):
     ``DeviceRecencyNeighborHook`` (``None`` = on: the fused kernel reads
     the packed buffer). ``prefetch`` is the reference's ``PrefetchLoader``
     queue depth; the port's pipeline runs its hooks in the calling thread
-    and does not read it. ``checkpoint_adjacency``, ``shards``, ``mesh_axis`` and
-    ``partition`` are the reference's uniform-sampler and mesh options. The
-    port runs ``kind="recency"``, on the host (the default) or with
-    ``device=True``, on one device.
+    and does not read it. ``checkpoint_adjacency`` (the uniform samplers'
+    O(E) CSR in their ``state_dict``, or only the draw counter), ``shards``,
+    ``mesh_axis`` and ``partition`` are the reference's uniform-sampler and
+    mesh options. The port runs both kinds, on the host (the default) or
+    with ``device=True``, on one device; ``shards`` raises.
     """
 
     kind: str = "recency"
@@ -158,7 +159,7 @@ class ModelSpec(_SpecBase):
     """A model-zoo name plus its config kwargs.
 
     CTDG link models: ``tgat``, ``tgn``, ``graphmixer``, ``dygformer``,
-    ``tpnet`` (the port runs ``tgat`` and ``tgn``); snapshot (DTDG) models: ``gcn``,
+    ``tpnet``; snapshot (DTDG) models: ``gcn``,
     ``gclstm``, ``tgcn``. ``kwargs`` feed the model config (e.g.
     ``{"num_layers": 1}`` for TGAT, ``{"d_embed": 64}`` for the snapshot
     models) and must stay JSON-serializable.

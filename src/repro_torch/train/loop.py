@@ -1,11 +1,12 @@
 """Link prediction pipelines (CTDG and DTDG) and the epoch engine.
 
-  * ``CTDGLinkPipeline`` — the TGB link recipe over the recency sampler
-    (on the host, or on the device), TGAT (1 or 2 layers) or TGN and one-vs-many
-    MRR, on one device (``device="cuda"`` by default): ``train_epoch``
-    (masked BCE, backward through the fused layer's backward kernel or the
-    classic attention's recompute, AdamW), ``evaluate(split)`` and
-    checkpoints, with TGN's memory threaded through as ``model_state``,
+  * ``CTDGLinkPipeline`` — the TGB link recipe over the recency or the
+    uniform sampler (on the host, or on the device), TGAT (1 or 2 layers),
+    TGN, GraphMixer, DyGFormer or TPNet and one-vs-many MRR, on one device
+    (``device="cuda"`` by default): ``train_epoch`` (masked BCE, backward
+    through the attention kernels' backward kernels where the model has
+    them, AdamW), ``evaluate(split)`` and checkpoints, with TGN's memory
+    and TPNet's walk features threaded through as ``model_state``,
     following ``repro.train.loop.CTDGLinkPipeline``.
     The hooks and the staging of each batch run in the calling thread,
     between steps: with an eager step, ``PrefetchLoader``'s producer thread
@@ -53,10 +54,10 @@ from repro_torch.core import (
     snapshot_tensor,
 )
 from repro_torch.core.batch import Batch
-from repro_torch.core.tg_hooks import stage_batch
+from repro_torch.core.tg_hooks import UniformNeighborHook, stage_batch
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.models.tg import snapshot, tgat, tgn
+from repro_torch.models.tg import dygformer, graphmixer, snapshot, tgat, tgn, tpnet
 from repro_torch.models.tg.common import bce_link_loss, link_decoder
 from repro_torch.obs import MemorySink, Telemetry
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -66,9 +67,13 @@ from repro_torch.tree import tree_leaves, tree_map
 
 CTDG_STATEFUL = {"tgn", "tpnet"}
 CTDG_LINK_MODELS = {"tgat", "graphmixer", "dygformer"} | CTDG_STATEFUL
-# The ported CTDG models: module with ``init``/``link_scores`` (and, when
-# stateful, ``init_state``/``update_memory``) and its config class.
-_CTDG_PORTED = {"tgat": (tgat, tgat.TGATConfig), "tgn": (tgn, tgn.TGNConfig)}
+# The CTDG models: module with ``init``/``link_scores`` and its config class.
+_CTDG_PORTED = {"tgat": (tgat, tgat.TGATConfig), "tgn": (tgn, tgn.TGNConfig),
+                "graphmixer": (graphmixer, graphmixer.GraphMixerConfig),
+                "dygformer": (dygformer, dygformer.DyGFormerConfig),
+                "tpnet": (tpnet, tpnet.TPNetConfig)}
+# The models with a fused attention path (``fused=``, the packed buffer).
+_FUSED_MODELS = {"tgat", "tgn"}
 
 
 # ----------------------------------------------------------------------
@@ -277,21 +282,26 @@ class _ParamsAndOptimizer:
 class CTDGLinkPipeline(_ParamsAndOptimizer):
     """CTDG link prediction over the TGB link recipe.
 
-    Ported: ``model_name`` "tgat" (1 or 2 layers; the hooks sample one hop
-    per layer unless ``SamplerSpec.num_hops`` says otherwise) and "tgn", with
-    ``SamplerSpec(kind="recency")`` on the host (the default, as in the
-    reference) or with ``device=True``; other models and samplers raise
-    ``NotImplementedError``. Parameters are leaf tensors with
+    ``model_name`` is "tgat" (1 or 2 layers; the hooks sample one hop per
+    layer unless ``SamplerSpec.num_hops`` says otherwise), "tgn",
+    "graphmixer", "dygformer" or "tpnet" (which samples no neighbors: its
+    recipe runs with k = 1, as the reference's), over
+    ``SamplerSpec(kind="recency")`` or ``kind="uniform"``, on the host (the
+    default, as in the reference) or with ``device=True``; ``shards``
+    raises ``NotImplementedError``. The uniform hooks' adjacency is built
+    once over the full stream at construction (the strict ``t < query_t``
+    filter keeps it leak-free). Parameters are leaf tensors with
     ``requires_grad``, from the port's seeded init (``torch.Generator``
     seeded with ``seed``) or from ``load_params`` (e.g. the reference's, via
     ``repro_torch.convert.params_from_jax``); the AdamW state (``lr``,
     default 1e-4) from ``adamw_init`` or ``load_opt_state``. A stateful
-    model (``CTDG_STATEFUL``: TGN's memory) keeps ``model_state``, reset
-    with the epoch, advanced by every batch, saved with the checkpoint and
-    installed by ``load_model_state``. ``fused`` forwards to the model's
+    model (``CTDG_STATEFUL``: TGN's memory, TPNet's ``{"R", "last"}``) keeps
+    ``model_state``, reset with the epoch, advanced by every batch, saved
+    with the checkpoint and installed by ``load_model_state``. ``fused``
+    (TGAT and TGN only, as in the reference) forwards to the model's
     ``link_scores``: ``None`` runs the fused path when the batch carries the
-    device sampler's buffer and the classic path otherwise (the CUDA
-    kernels on the GPU, their plain versions on the CPU), ``"ref"`` the
+    device recency sampler's buffer and the classic path otherwise (the
+    CUDA kernels on the GPU, their plain versions on the CPU), ``"ref"`` the
     plain version of that path, ``False`` the classic path. ``telemetry``
     (a ``repro_torch.obs.Telemetry``) instruments the epochs, steps and the
     loader.
@@ -316,16 +326,16 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     ):
         if model_name not in CTDG_LINK_MODELS:
             raise ValueError(f"unknown CTDG model {model_name!r}")
-        if model_name not in _CTDG_PORTED:
-            raise NotImplementedError(
-                f"{model_name!r} is not ported yet (ROADMAP A: the rest of "
-                f"the CTDG zoo); the port runs {sorted(_CTDG_PORTED)}")
+        if fused is not None and model_name not in _FUSED_MODELS:
+            raise ValueError(
+                f"fused= applies to the TGAT/TGN fused attention path; "
+                f"{model_name!r} has no fused twin")
         spec = sampler_spec or SamplerSpec(k=k)
-        if spec.kind != "recency" or spec.shards:
+        if spec.shards:
             raise NotImplementedError(
-                "the port's pipeline runs the recency sampler on one device "
-                "(SamplerSpec(kind='recency'), host or device=True); other "
-                "samplers are later slices (ROADMAP A)")
+                "the port's pipeline runs its sampler on one device; "
+                "mesh-sharded samplers (SamplerSpec.shards) wait for the "
+                "multi-GPU slice (ROADMAP A5)")
         self.device = resolve_device(device)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.model_name = model_name
@@ -339,25 +349,33 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         d_edge = data.edge_feat_dim
         n = data.num_nodes
         self._model, config = _CTDG_PORTED[model_name]
-        self.cfg = config(num_nodes=n, d_edge=d_edge, k=spec.k,
-                          **dict(model_kwargs or {}))
+        kwargs = dict(model_kwargs or {})
+        if model_name == "tpnet":
+            self.cfg = config(num_nodes=n, **kwargs)
+        else:
+            self.cfg = config(num_nodes=n, d_edge=d_edge, k=spec.k, **kwargs)
         gen = torch.Generator().manual_seed(seed)
         self.load_params(self._model.init(self.cfg, gen, device=self.device))
         self.stateful = model_name in CTDG_STATEFUL
-        self.model_state = (self._model.init_state(self.cfg, self.device)
-                            if self.stateful else None)
+        self.model_state = self._init_state() if self.stateful else None
 
         # TGAT samples one hop per layer (at most two); the spec overrides.
         num_hops = (min(2, self.cfg.num_layers) if model_name == "tgat"
                     else 1)
         if spec.num_hops is not None:
             num_hops = spec.num_hops
+        # Only TGAT and TGN read the packed buffer.
+        expose = spec.expose_buffer
+        if expose is None and model_name not in _FUSED_MODELS:
+            expose = False
         self.manager = RecipeRegistry.build(
             RECIPE_TGB_LINK,
             num_nodes=n,
-            spec=SamplerSpec(kind="recency", k=self.cfg.k, num_hops=num_hops,
-                             device=spec.device,
-                             expose_buffer=spec.expose_buffer),
+            spec=SamplerSpec(kind=spec.kind,
+                             k=1 if model_name == "tpnet" else self.cfg.k,
+                             num_hops=num_hops, device=spec.device,
+                             checkpoint_adjacency=spec.checkpoint_adjacency,
+                             expose_buffer=expose),
             batch_size=batch_size,
             eval_negatives=eval_negatives,
             # Full-stream features: sampled edge ids are global event
@@ -367,15 +385,27 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
             seed=seed,
             device=self.device,
         )
+        for hook in self.manager.hooks():
+            if isinstance(hook, UniformNeighborHook):
+                hook.build(data.src, data.dst, data.edge_t,
+                           np.arange(len(data.src), dtype=np.int64))
         self.opt_cfg = AdamWConfig(lr=1e-4 if lr is None else lr)
         self.opt_state = adamw_init(self.params)
+
+    def _init_state(self):
+        """A stateful model's state at the start of an epoch, on the
+        pipeline's device (TPNet's walk features start from ``r0``)."""
+        if self.model_name == "tpnet":
+            return tpnet.init_state(self.params, self.cfg)
+        return self._model.init_state(self.cfg, self.device)
 
     def load_model_state(self, state) -> None:
         """Install a stateful model's state (tensors or arrays, e.g. the
         reference's via ``repro_torch.convert.state_from_jax``) on the
         pipeline's device, each leaf in the dtype of the model's
-        ``init_state`` (TGN: float32 memory, int32 ``last_update``)."""
-        proto = self._model.init_state(self.cfg, "cpu")
+        ``init_state`` (float32 TGN memory and TPNet ``R``, int32
+        ``last_update`` and ``last``)."""
+        proto = self._init_state()
         self.model_state = tree_map(
             lambda t, p: _on_device(t, self.device, p.dtype), state, proto)
 
@@ -401,13 +431,13 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         """``((pos, neg), new_state)``: the link logits of ``batch`` and the
         model state after it (``None`` for a stateless model; a stateful
         model's new state carries no autograd graph)."""
+        kw = {"fused": self.fused} if self.model_name in _FUSED_MODELS else {}
         if self.stateful:
             return self._model.link_scores(
                 self.params, self.cfg, self.model_state, batch,
-                self.batch_size, fused=self.fused)
+                self.batch_size, **kw)
         return self._model.link_scores(self.params, self.cfg, batch,
-                                       self.batch_size,
-                                       fused=self.fused), None
+                                       self.batch_size, **kw), None
 
     def _loss_and_state(self, batch):
         """The masked BCE link loss of ``batch`` (forward pass) and the
@@ -451,7 +481,7 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         """Clear hook/sampler state (and the model state) for an epoch."""
         self.manager.reset_state()
         if self.stateful:
-            self.model_state = self._model.init_state(self.cfg, self.device)
+            self.model_state = self._init_state()
 
     # -- checkpointing ---------------------------------------------------
     # The sampler buffers (and a stateful model's state) ride along with the

@@ -59,7 +59,9 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.kernels.ssd_chunk.ref",
             "repro_torch.serve.decode", "repro_torch.launch.serve",
             "repro_torch.launch.train", "repro_torch.train.tg_trainer",
-            "repro_torch.core.events"} <= set(names)
+            "repro_torch.core.events", "repro_torch.nn.norm",
+            "repro_torch.models.tg.graphmixer", "repro_torch.models.tg.dygformer",
+            "repro_torch.models.tg.tpnet", "repro_torch.core.device_uniform"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -117,6 +119,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
         snapshot_tensor(generate("tiny"), "h")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate("tiny").to_snapshots("h")
+    # The rest of the CTDG zoo and the uniform samplers.
+    from repro_torch.core import DeviceUniformSampler
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceUniformSampler(10, 4)
+    for name in ("graphmixer", "dygformer", "tpnet"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CTDGLinkPipeline(name, generate("tiny"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment(data=DataSpec("tiny"), sampler=SamplerSpec(kind="uniform")).compile()
     # LM serving (the launch entry point defaults to --device cuda).
     from repro_torch.launch.serve import main as serve_main
 

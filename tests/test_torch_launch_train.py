@@ -3,14 +3,17 @@ background checkpointer, the legacy trainer and the event types.
 
 * ``python -m repro_torch.launch.train`` on the CPU (``--device cpu``) as
   ``tests/test_fault_tolerance.py`` drives the reference: the ``tg``
-  workload (its default model, 2-layer TGAT with k = 20) killed after an
-  epoch and resumed; the ``dtdg`` workload (GCLSTM) killed mid-epoch and
-  resumed to a bit-identical final test MRR.
+  workload (its default model, 2-layer TGAT with k = 20, and ``--model
+  tpnet`` as the reference's ``test_tg_workload_resume`` runs it) killed
+  after an epoch and resumed; the ``dtdg`` workload (GCLSTM) killed
+  mid-epoch and resumed to a bit-identical final test MRR.
 * ``AsyncCheckpointer``: a tree updated in place after ``save()`` restores
   to its values at ``save()``; retention; ``close()`` twice; a failed write
   raises on the caller's thread.
 * ``LinkPredictionTrainer``'s legacy kwargs give the reference's
-  ``SamplerSpec``; ``EdgeEvent``/``NodeEvent`` have the reference's fields.
+  ``SamplerSpec`` (the legacy uniform kwargs build the port's uniform hook,
+  its sampler state equal to the reference's); ``EdgeEvent``/``NodeEvent``
+  have the reference's fields.
 """
 
 from __future__ import annotations
@@ -60,6 +63,22 @@ def test_tg_workload_kill_and_resume(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "[resume] restored epoch 0" in out.stdout
     assert "epoch 0:" not in out.stdout and "epoch 1:" in out.stdout
+    assert 0.0 < float(_final(out).split()[3]) <= 1.0
+
+
+def test_tg_workload_resume_tpnet(tmp_path):
+    """The reference's ``tests/test_fault_tolerance.py::test_tg_workload_resume``
+    against the port's CLI: TPNet on ``tiny`` at data scale 0.2, killed
+    after epoch 0 and resumed."""
+    cmd = ["--workload", "tg", "--model", "tpnet", "--dataset", "tiny",
+           "--data-scale", "0.2", "--epochs", "2", "--batch-size", "64",
+           "--ckpt-dir", str(tmp_path)]
+    out = _cli(cmd + ["--simulate-failure", "0"])
+    assert out.returncode == 42, out.stderr[-2000:]
+    out = _cli(cmd + ["--resume"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[resume]" in out.stdout
+    assert "final test MRR" in out.stdout
     assert 0.0 < float(_final(out).split()[3]) <= 1.0
 
 
@@ -195,13 +214,35 @@ def test_legacy_kwargs_give_the_reference_sampler_spec(case):
 
 
 def test_legacy_uniform_sampler_maps_and_is_not_ported_yet():
+    """The name is kept from the slices before the uniform sampler was
+    ported. The legacy ``sampler="uniform"`` kwargs map to the reference's
+    ``SamplerSpec`` and now build the port's host ``UniformNeighborHook``,
+    whose sampler state (CSR over the full stream, counter-only with
+    ``uniform_checkpoint_adjacency=False``, and after a draw) equals the
+    reference trainer's."""
+    from repro_torch.core.tg_hooks import UniformNeighborHook
+
     kw = dict(sampler="uniform", k=4, uniform_checkpoint_adjacency=False)
     jt = JaxTrainer("tgat", jax_generate("tiny", scale=0.2), batch_size=64,
                     model_kwargs={"num_layers": 1}, **kw)
     assert legacy_sampler_spec(**kw).to_dict() == jt.sampler_spec.to_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        LinkPredictionTrainer("tgat", generate("tiny", scale=0.2),
-                              batch_size=64, device="cpu", **kw)
+    tt = LinkPredictionTrainer("tgat", generate("tiny", scale=0.2),
+                               batch_size=64, device="cpu",
+                               model_kwargs={"num_layers": 1}, **kw)
+    assert tt.sampler_spec.to_dict() == jt.sampler_spec.to_dict()
+    hooks = [h for h in tt.manager.hooks() if isinstance(h, UniformNeighborHook)]
+    jhooks = [h for h in jt.manager.hooks() if hasattr(h, "sampler")]
+    assert len(hooks) == len(jhooks) == 1 and hooks[0].k == 4
+    port, ref = hooks[0].sampler, jhooks[0].sampler
+    for name in ("_adj_nbr", "_adj_t", "_adj_e", "_indptr"):
+        np.testing.assert_array_equal(getattr(port, name), getattr(ref, name))
+    seeds, qt = np.arange(8), np.full(8, 10**6)
+    port.sample(seeds, qt)
+    ref.sample(seeds, qt)
+    want = ref.state_dict()
+    got = port.state_dict()
+    assert sorted(got) == sorted(want) == ["counter"]
+    assert int(got["counter"]) == int(want["counter"]) == 1
 
 
 @pytest.mark.parametrize("name", ["EdgeEvent", "NodeEvent"])

@@ -85,8 +85,19 @@ def test_experiment_compiles_the_link_quadrant_on_cpu():
     mrr, _ = pipe.evaluate("test")
     assert 0.0 < mrr <= 1.0
     assert Experiment.from_json(exp.to_json()) == exp
-    with pytest.raises(NotImplementedError):
-        Experiment(model=ModelSpec("graphmixer")).compile(device="cpu")
+    # The rest of the CTDG zoo compiles; a mesh-sharded sampler still
+    # refuses (the multi-GPU slice).
+    for name, kw in (("graphmixer", {"d_model": 16, "d_time": 8}),
+                     ("dygformer", {"d_model": 16, "d_time": 8, "d_cooc": 4}),
+                     ("tpnet", {"d_rp": 8, "d_hidden": 16})):
+        pipe = Experiment(data=DataSpec("tiny"), model=ModelSpec(name, kw),
+                          sampler=SamplerSpec(k=4),
+                          train=TrainSpec(batch_size=100, eval_negatives=5)
+                          ).compile(device="cpu")
+        assert pipe.model_name == name and pipe.cfg.num_nodes == 80
+    with pytest.raises(NotImplementedError, match="A5"):
+        Experiment(sampler=SamplerSpec(kind="uniform", device=True, shards=2)
+                   ).compile(device="cpu")
     # With snapshots the quadrant is DTDG: an event-stream model is refused
     # (tests/test_torch_dtdg_pipeline.py compiles the snapshot models).
     with pytest.raises(ValueError, match="not a snapshot"):
