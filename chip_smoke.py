@@ -133,7 +133,32 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    replayed after ``reset_state`` bit for bit, and a host <-> device
    ``state_dict`` interchange.
 
-13. ``lm_kernels`` — the LM serving slice's kernels against their plain
+13. ``node``   — the node tasks (Table 4's configuration,
+   ``benchmarks/table4_nodeprop.py``: synthetic ``genre`` at full scale,
+   1,505 nodes and 1,785,839 events over 30 days, daily label windows,
+   ``val_ratio`` 0, ``test_ratio`` 0.3, 16 categories, ``d_embed`` 32) and
+   the device discretization (Table 5): first K4 at genre's daily capacity
+   (G = 1,505, D = 1 and 32) bit-equal to the edge-order loop, and K3 and
+   K3b at (2,048, 4, 2, 16) with the node-0 padding rows empty, against
+   their plain versions, with times, device µs, bounds and the library
+   calls; then GCN, GCLSTM and T-GCN through ``DTDGNodePipeline``: the
+   labels of every pair built on the card bit-equal to the CPU's, test
+   NDCG@10 through K4 and with ``mode="ref"`` (within 1e-4, or every
+   swapped row a named near-tie), 3 train steps held step by step (loss,
+   every gradient, the carried state), one ``train_epoch()`` with its K4
+   launch count and test NDCG after it, a bit-identical checkpoint round
+   trip; ``tgn`` through
+   ``EventNodePipeline``: test NDCG through K3 and plain, 3 windows held
+   step by step (K3 and K3b on each window's own inputs and cotangent), one
+   epoch with its K3 and K3b counts, a checkpoint round trip, the node-0
+   padding rows' share of the active rows; ``pf`` bit-equal to the CPU;
+   last Table 5: ``discretize_device`` against ``discretize`` and
+   ``discretize_naive`` at ``reduce="count"``, hourly, on full-scale
+   ``wikipedia``, ``reddit`` and ``lastfm`` (integer columns and the exact
+   reductions bit for bit, sums within 1e-5 relative; the int32 guard
+   passing), their times and speedups, every reduction on ``wikipedia``
+   and genre's daily axis.
+14. ``lm_kernels`` — the LM serving slice's kernels against their plain
    versions on the card at its shapes (B = 4, S = 4,096, bfloat16): K5
    (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
    window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
@@ -149,7 +174,7 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
    rows, steep decay in both types, groups incl. two at N = 128, P and N
    not multiples of 16); ``profiler_clock`` before the phase.
-14. ``lm``     — first the decode attentions' products (``layers.
+15. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
    shapes, within DECODE_TOL, with the memory a call allocates held below
@@ -194,7 +219,7 @@ copy kernels and the largest copies by shape). ``build`` and
 known launches, early and late in the process). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
 K2, K3, K3b, K4, K5 and K6 with their launches on the main paths, the
-uniform samplers' runs among K3's and K3b's; K1w, off
+uniform samplers' and the node tasks' runs among K3's, K3b's and K4's; K1w, off
 the path, beside them), the card's name and power limit as nvidia-smi reports them,
 and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
@@ -1339,34 +1364,45 @@ def dtdg_epoch(torch, pipe, mode):
 
 
 def dtdg_step_parity(torch, pipe, n_steps):
-    """The first ``n_steps`` train steps, each from the same parameters and
-    carried state through K4 and through the plain version: the loss within
-    DTDG_STEP_LOSS_TOL, every whole-model gradient within GRAD_RTOL of its
-    leaf's largest entry (+ GRAD_FLOOR), the new state within the kernel
-    tolerances; ``grad_tolerance_share`` is the largest error over its
-    tolerance. The kernels' update moves the run on."""
+    """The first ``n_steps`` train steps of the DTDG link pipeline, held by
+    ``snapshot_step_parity``."""
     from repro_torch.models.tg.common import bce_link_loss
 
-    def tensors(state):
-        return state if isinstance(state, tuple) else (state,)
+    def loss_and_state(x):
+        pos, neg, st = pipe._scores(pipe.params, x, pipe.model_state)
+        return bce_link_loss(pos, neg, x["nmask"]), st
 
     lo, _ = pipe._split_pairs("train")
     xs = pipe._pair_xs(lo, lo + n_steps, pipe.num_negatives)
+    return snapshot_step_parity(
+        torch, pipe, [{k: v[i] for k, v in xs.items()} for i in range(n_steps)],
+        loss_and_state, "DTDG")
+
+
+def snapshot_step_parity(torch, pipe, xs, loss_and_state, label):
+    """A snapshot pipeline's train steps on the pair inputs ``xs``, each from
+    the same parameters and carried state through K4 and through the plain
+    version (``loss_and_state(x) -> (loss, new state)`` under ``pipe.mode``):
+    the loss within DTDG_STEP_LOSS_TOL, every whole-model gradient within
+    GRAD_RTOL of its leaf's largest entry (+ GRAD_FLOOR), the new state
+    within the kernel tolerances; ``grad_tolerance_share`` is the largest
+    error over its tolerance. The kernels' update moves the run on."""
+    def tensors(state):
+        return state if isinstance(state, tuple) else (state,)
+
     pipe.reset_epoch_state()
     worst = {"loss": 0.0, "model_grad_rel": 0.0, "model_grad_name": None,
              "grad_tolerance_share": 0.0, "state_max_abs_err": 0.0}
-    for i in range(n_steps):
-        x = {k: v[i] for k, v in xs.items()}
+    for i, x in enumerate(xs):
         out = {}
         for mode in ("ref", "auto"):
             pipe.mode = mode
-            pos, neg, st = pipe._scores(pipe.params, x, pipe.model_state)
-            loss = bce_link_loss(pos, neg, x["nmask"])
+            loss, st = loss_and_state(x)
             out[mode] = (loss.detach(), pipe._grads(loss), st)
         (loss, grads, st), (loss_ref, grads_ref, st_ref) = out["auto"], out["ref"]
         dl = abs(loss.item() - loss_ref.item())
         check(dl <= DTDG_STEP_LOSS_TOL,
-              f"DTDG train step {i}: loss {loss.item()} (K4) vs "
+              f"{label} train step {i}: loss {loss.item()} (K4) vs "
               f"{loss_ref.item()} (plain)")
         worst["loss"] = max(worst["loss"], dl)
         flat_ref = _flat(grads_ref)
@@ -1374,7 +1410,7 @@ def dtdg_step_parity(torch, pipe, n_steps):
             want = flat_ref[name]
             e, scale = float((g - want).abs().max()), float(want.abs().max())
             tol = GRAD_RTOL * scale + GRAD_FLOOR
-            check(e <= tol, f"DTDG train step {i}: gradient {name} off by "
+            check(e <= tol, f"{label} train step {i}: gradient {name} off by "
                             f"{e:.3e} (largest entry {scale:.3e})")
             worst["grad_tolerance_share"] = max(worst["grad_tolerance_share"],
                                                 e / tol)
@@ -1383,7 +1419,7 @@ def dtdg_step_parity(torch, pipe, n_steps):
         for a_, b_ in zip(tensors(st), tensors(st_ref)):
             worst["state_max_abs_err"] = max(
                 worst["state_max_abs_err"],
-                compare(torch, a_.detach(), b_.detach(), f"DTDG step {i} state"))
+                compare(torch, a_.detach(), b_.detach(), f"{label} step {i} state"))
         pipe._update(grads)
         pipe.model_state = (tuple(t.detach() for t in st) if isinstance(st, tuple)
                             else st.detach())
@@ -2168,6 +2204,31 @@ def _negative_delta_share(torch, flat):
     return float((neg & valid).sum()) / max(int(valid.sum()), 1)
 
 
+def sdpa_calls(torch, q, k, v, m, g):
+    """SDPA forward, and forward + backward, over the rows of K3's operands
+    with a valid slot (SDPA gives no zeros for a row without one): the
+    callables and the row count."""
+    import torch.nn.functional as F
+
+    live = m.any(-1)
+    sq = q[live].unsqueeze(2).contiguous()                # (S', H, 1, D)
+    sk = k[live].permute(0, 2, 1, 3).contiguous()         # (S', H, K, D)
+    sv = v[live].permute(0, 2, 1, 3).contiguous()
+    sm = m[live][:, None, None, :].contiguous()
+    sg = g[live].unsqueeze(2).contiguous()
+    leaves = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=sm)
+            return torch.autograd.grad(out, leaves, sg)
+
+    return fwd, fwd_bwd, int(live.sum())
+
+
 def tgat2_kernels(torch):
     """The 2-layer path's calls of K1, K2, K3 and K3b at its shapes (k =
     20), each against its plain version on the card: K1 in the seed form
@@ -2188,8 +2249,6 @@ def tgat2_kernels(torch):
     for K3 (K3b)."""
     from functools import partial
 
-    import torch.nn.functional as F
-
     from repro_torch.kernels.temporal_attention import (
         fused_temporal_layer_bwd_kernel,
         fused_temporal_layer_bwd_ref,
@@ -2203,27 +2262,6 @@ def tgat2_kernels(torch):
         temporal_attention_ref,
     )
     from repro_torch.kernels.temporal_attention.kernel import workspace_bytes
-
-    def sdpa_calls(q, k, v, m, g):
-        """SDPA forward, and forward + backward, over the rows with a valid
-        slot (SDPA gives no zeros for a row without one)."""
-        live = m.any(-1)
-        sq = q[live].unsqueeze(2).contiguous()                # (S', H, 1, D)
-        sk = k[live].permute(0, 2, 1, 3).contiguous()         # (S', H, K, D)
-        sv = v[live].permute(0, 2, 1, 3).contiguous()
-        sm = m[live][:, None, None, :].contiguous()
-        sg = g[live].unsqueeze(2).contiguous()
-        leaves = [t.clone().requires_grad_(True) for t in (sq, sk, sv)]
-
-        def fwd():
-            return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
-
-        def fwd_bwd():
-            with torch.enable_grad():
-                out = F.scaled_dot_product_attention(*leaves, attn_mask=sm)
-                return torch.autograd.grad(out, leaves, sg)
-
-        return fwd, fwd_bwd, int(live.sum())
 
     gen = torch.Generator().manual_seed(20)
     dgen = torch.Generator(device=DEVICE).manual_seed(20)
@@ -2325,7 +2363,7 @@ def tgat2_kernels(torch):
             err = compare(torch, got, plain(), f"K3 {label}")
             check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
             check(bool(torch.equal(kern(), got)), f"K3 {label}: a second launch gave other bits")
-            sdpa, sdpa_fwd_bwd, rows = sdpa_calls(q, k, v, m, g)
+            sdpa, sdpa_fwd_bwd, rows = sdpa_calls(torch, q, k, v, m, g)
             r = record(f"K3_{name}", kern, plain, attention_bound(q, k, v, m),
                        plain_reps=2, S=S, K=K20, chunks=plan["chunks"], max_abs_err=err,
                        rows_without_valid_slot=int(empty.sum()), valid_slots=int(m.sum()),
@@ -2959,6 +2997,621 @@ def zoo_phase(torch, data):
     out["uniform"]["samplers"] = uniform_checks(torch, host, dev)
     del host, dev
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The node tasks (Table 4) and the device discretization (Table 5)
+# ---------------------------------------------------------------------------
+NODE_NUM_CATS = 16
+# Snapshot models and their K4 launches per apply of the model (GCN: two
+# layers of four segment sums; GCLSTM: four gate convolutions; T-GCN: three).
+NODE_SNAPSHOT_MODELS = (("gcn", 8), ("gclstm", 16), ("tgcn", 12))
+NODE_PARITY_STEPS = 3
+NDCG_TOL = 1e-4
+# A near-tie: two categories whose probabilities differ by less than this
+# may swap between the kernel and the plain path (float32 rounding).
+NEAR_TIE = 1e-5
+# TGN's attention on the node path: the seed users' power-of-two bucket (a
+# genre day has up to 1,320 users), k = 4 neighbors, 2 heads of d_model / 2.
+NODE_S, NODE_K, NODE_H, NODE_D = 2048, 4, 2, 16
+# Table 5: sum and mean features within this relative tolerance (index_add_
+# adds in arrival order on the card); the rest bit for bit.
+DISC_SUM_RTOL = 1e-5
+DISC_REDUCTIONS = ("first", "last", "sum", "mean", "max", "count")
+
+
+def node_experiment(model: str):
+    """Table 4's configuration (``benchmarks/table4_nodeprop.py``): synthetic
+    ``genre`` at full scale (1,505 nodes, 1,785,839 events, 30 days), daily
+    label windows, ``val_ratio`` 0, ``test_ratio`` 0.3, ``num_cats`` 16,
+    each model's reference defaults (``d_embed`` 32; TGN ``d_time`` 16,
+    k = 4), one epoch."""
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
+
+    return Experiment(task="node",
+                      data=DataSpec("genre", scale=1.0, discretization="d",
+                                    val_ratio=0.0, test_ratio=0.3),
+                      model=ModelSpec(model, {"num_cats": NODE_NUM_CATS}),
+                      train=TrainSpec(epochs=1))
+
+
+def node_kernels(torch, data):
+    """K4, K3 and K3b at the node path's shapes against their plain versions:
+    K4 at genre's busiest daily snapshot (E = the daily capacity, G = 1,505)
+    at D = 1 (degrees) and 32 (``d_embed``), bit-equal to the edge-order
+    float32 loop, a second launch bitwise, and at D = 32 again with the
+    padding edges' ids dropped (-1 in place of 0: the same sums); K3 and K3b at (2,048, 4, 2, 16),
+    the rows past the busiest day's users without a valid slot (the node-0
+    padding), exact zeros there, a second launch bitwise, the launch plans
+    held to the CUDA source's. Times by CUDA events of each kernel, its
+    plain version and the library call (``index_add_``; SDPA forward, and
+    forward + backward, over the rows with a valid slot), device µs per call
+    from one profiler window, bounds and shares."""
+    from functools import partial
+
+    import numpy as np
+
+    from repro_torch.core import DGDataLoader, DGraph, snapshot_tensor
+    from repro_torch.kernels.segment_reduce import segment_sum_kernel, segment_sum_ref
+    from repro_torch.kernels.temporal_attention import (
+        temporal_attention_bwd_kernel,
+        temporal_attention_bwd_ref,
+        temporal_attention_kernel,
+        temporal_attention_ref,
+    )
+
+    gen = torch.Generator().manual_seed(22)
+    res, timed = {}, {}
+
+    def record(key, kern, plain, bound, lib, **extra):
+        r = res[key] = dict(extra, ms=time_ms(torch, kern, 20),
+                            plain_ms=time_ms(torch, plain, 5),
+                            library_ms=time_ms(torch, lib, 20),
+                            bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                            flops=bound[3])
+        r["bound_share"] = bound[0] / r["ms"]
+        timed[key], timed[f"{key}_library"] = kern, lib
+        return r
+
+    with torch.no_grad():
+        st = snapshot_tensor(data, "d", device=DEVICE)
+        row = int(torch.argmax(st.counts))
+        ids, mask = st.src[row].contiguous(), st.mask[row]
+        E, G = ids.shape[0], data.num_nodes
+        for D in (1, 32):
+            x = (torch.randn((E, D), generator=gen).to(DEVICE) * mask[:, None]).contiguous()
+            kern = partial(segment_sum_kernel, x, ids, G)
+            got = kern()
+            err = compare(torch, got, segment_sum_ref(x, ids, G), f"K4 node E={E} D={D}")
+            check(bool((got.cpu().numpy().view("u4")
+                        == edge_order_sum(x, ids, G).view("u4")).all()),
+                  f"K4 node E={E} D={D}: not the edge-order sum's bits")
+            check(bool(torch.equal(kern(), got)), f"K4 node D={D}: a second launch "
+                                                  f"gave other bits")
+            lib = partial(lambda x_: torch.zeros((G, x_.shape[1]), device=DEVICE)
+                          .index_add_(0, ids, x_), x)
+            record(f"K4_d{D}", kern, partial(segment_sum_ref, x, ids, G),
+                   segment_bound(E, E, D, G), lib, E=E, valid_edges=int(st.counts[row]),
+                   D=D, G=G, max_abs_err=err, bitwise_equal_to_edge_order_loop=True,
+                   rerun_bitwise_equal=True)
+        # The same call with the padding edges' ids dropped (-1) instead of
+        # 0: what the run of ~3,800 padding ids in segment 0 costs.
+        dropped = torch.where(mask, ids, -1).contiguous()
+        kern = partial(segment_sum_kernel, x, dropped, G)
+        check(bool(torch.equal(kern(), got)), "K4 node D=32: dropping the padding "
+                                              "ids changed the sums")
+        lib = partial(lambda x_: torch.zeros((G, x_.shape[1]), device=DEVICE)
+                      .index_add_(0, dropped.clamp(min=0), x_), x)
+        record("K4_d32_padding_dropped", kern, partial(segment_sum_ref, x, dropped, G),
+               segment_bound(int(mask.sum()), E, 32, G), lib, E=E,
+               padding_ids=int((~mask).sum()), D=32, G=G)
+
+        users = max(len(np.unique(b["src"])) for b in DGDataLoader(
+            DGraph(data), None, batch_size=None, batch_unit="d"))
+        q, k, v, m = attention_inputs(torch, gen, NODE_S, k=NODE_K, h=NODE_H, d=NODE_D)
+        m[users:] = False  # the padding rows: node 0 with no neighbor
+        g = torch.randn((NODE_S, NODE_H, NODE_D), generator=gen).to(DEVICE)
+        label = f"node S={NODE_S} K={NODE_K} H={NODE_H} D={NODE_D}"
+        empty = ~m.any(-1)
+        plan = ta_plan_checked(torch, q, k, aligned_with=(v,))
+        ta_plan_checked(torch, q, k, backward=True, aligned_with=(v, g))
+        kern = partial(temporal_attention_kernel, q, k, v, m)
+        got = kern()
+        err = compare(torch, got, temporal_attention_ref(q, k, v, m), f"K3 {label}")
+        check(bool((got[empty] == 0).all()), f"K3 {label}: empty rows not exactly zero")
+        check(bool(torch.equal(kern(), got)), f"K3 {label}: a second launch gave other bits")
+        sdpa, sdpa_fwd_bwd, rows = sdpa_calls(torch, q, k, v, m, g)
+        common = dict(S=NODE_S, K=NODE_K, H=NODE_H, D=NODE_D, users=users,
+                      rows_without_valid_slot=int(empty.sum()), valid_slots=int(m.sum()),
+                      library_rows=rows, vector_bytes=plan["vector_bytes"])
+        record("K3", kern, partial(temporal_attention_ref, q, k, v, m),
+               attention_bound(q, k, v, m), sdpa, max_abs_err=err,
+               rerun_bitwise_equal=True, **common)
+        bwd = partial(temporal_attention_bwd_kernel, g, q, k, v, m)
+        grads = bwd()
+        want = plain_attention_grads(torch, g, q, k, v, m)
+        gerr = {n: compare(torch, a, b, f"K3b {label} d{n}")
+                for n, a, b in zip("qkv", grads, want)}
+        dq, dk, dv = grads
+        check(bool((dq[empty] == 0).all()) and bool((dk[~m] == 0).all())
+              and bool((dv[~m] == 0).all()),
+              f"K3b {label}: masked slots or empty rows not exactly zero")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(bwd(), grads)),
+              f"K3b {label}: a second launch gave other bits")
+        record("K3b", bwd, partial(temporal_attention_bwd_ref, g, q, k, v, m),
+               bwd_attention_bound(q, k, v, m), sdpa_fwd_bwd,
+               max_abs_err=max(gerr.values()), errors=gerr, rerun_bitwise_equal=True,
+               **common)
+        us = grouped_device_us(torch, timed)
+    for key, r in res.items():
+        r["device_us"] = us[key]
+        r["library_device_us"] = us[f"{key}_library"]
+        r["bound_share_device"] = 1e3 * r["bound_ms"] / us[key] if us[key] else None
+    return res
+
+
+def ndcg_rows_of(torch, pipe, mode):
+    """``evaluate("test")`` of a node pipeline with ``pipe.mode = mode``,
+    every launch count zeroed just before it and read just after: the NDCG,
+    the seconds, the launches and the (probabilities, labels) rows it
+    scored."""
+    import repro_torch.train.nodeprop as nodeprop
+    from repro_torch.kernels import segment_reduce, temporal_attention
+
+    rows, score = [], nodeprop._ndcg_rows
+
+    def keep(r, k_eval):
+        r = list(r)
+        rows.extend(r)
+        return score(r, k_eval)
+
+    pipe.mode = mode
+    nodeprop._ndcg_rows = keep
+    try:
+        torch.cuda.synchronize()
+        _reset_launches_all()
+        t = time.perf_counter()
+        ndcg, _ = pipe.evaluate("test")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        nodeprop._ndcg_rows = score
+        pipe.mode = "auto"
+    check(math.isfinite(ndcg) and 0.0 < ndcg <= 1.0, f"node test NDCG {ndcg}")
+    launches = {**temporal_attention.LAUNCHES, **segment_reduce.LAUNCHES}
+    return dict(ndcg=ndcg, seconds=wall, launches=dict(launches)), rows
+
+
+def near_ties(rows, rows_ref, k: int = 10):
+    """Rows of active users whose top-``k`` categories are ordered
+    differently on the two paths: (window, row, the first two categories
+    that swap, their probability gap on the kernel path)."""
+    import numpy as np
+
+    out = []
+    for w, ((pr, lab), (pr_ref, _)) in enumerate(zip(rows, rows_ref)):
+        active = lab.sum(-1) > 0
+        top = np.argsort(-pr[active], axis=1)[:, :k]
+        top_ref = np.argsort(-pr_ref[active], axis=1)[:, :k]
+        for r in np.flatnonzero((top != top_ref).any(1)):
+            j = int(np.flatnonzero(top[r] != top_ref[r])[0])
+            a, b = int(top[r, j]), int(top_ref[r, j])
+            gap = float(abs(pr[active][r, a] - pr[active][r, b]))
+            out.append({"window": w, "row": int(np.flatnonzero(active)[r]),
+                        "categories": [a, b], "gap": gap})
+    return out
+
+
+def node_agreement(torch, pipe, label):
+    """Test NDCG through the kernels and with the plain versions from the
+    same parameters: within NDCG_TOL, or else every differing row a near-tie
+    (named, with its gap). Returns (kernel eval, plain eval, near-ties)."""
+    ev, rows = ndcg_rows_of(torch, pipe, "auto")
+    ev_ref, rows_ref = ndcg_rows_of(torch, pipe, "ref")
+    check(not any(ev_ref["launches"].values()), f"{label}: mode='ref' launched a kernel")
+    ties = near_ties(rows, rows_ref)
+    diff = abs(ev["ndcg"] - ev_ref["ndcg"])
+    check(diff <= NDCG_TOL or all(t["gap"] < NEAR_TIE for t in ties),
+          f"{label} test NDCG {ev['ndcg']} (kernels) vs {ev_ref['ndcg']} (plain); "
+          f"swapped top-10 rows: {ties[:5]}")
+    return ev, ev_ref, ties
+
+
+def node_epoch(torch, pipe):
+    """One ``train_epoch()`` through the kernels, every launch count zeroed
+    just before it and read just after, then test NDCG."""
+    from repro_torch.kernels import segment_reduce, temporal_attention
+
+    torch.cuda.synchronize()
+    _reset_launches_all()
+    t = time.perf_counter()
+    loss, _ = pipe.train_epoch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(math.isfinite(loss), f"node epoch loss {loss}")
+    launches = dict({**temporal_attention.LAUNCHES, **segment_reduce.LAUNCHES})
+    ndcg, _ = pipe.evaluate("test")
+    return dict(loss=loss, epoch_seconds=wall, launches=launches, test_ndcg=ndcg)
+
+
+def node_snapshot_run(torch, data, name: str, per: int, cpu):
+    """One snapshot model through ``DTDGNodePipeline`` on the card: the labels
+    of every pair bit-equal to the CPU pipeline's (``cpu``); test NDCG
+    through K4 (``per`` launches an apply: the warm steps and the scored
+    pairs, GCN only the scored) and with ``mode="ref"``; the first train
+    steps held step by step; one ``train_epoch()`` through K4 (``per`` a
+    pair; the backward is a gather) and test NDCG after it; a checkpoint
+    round trip (bit-equal parameters, optimizer and recurrent state)."""
+    import shutil
+
+    t = time.perf_counter()
+    pipe = node_experiment(name).compile(data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+    (lo, hi), (tlo, thi) = pipe._split_pairs("train"), pipe._split_pairs("test")
+    T = pipe.snapshots.num_snapshots
+    for p in range(T - 1):
+        check(torch.equal(pipe.labels_of(pipe._pair_x(p)).cpu(),
+                          cpu.labels_of(cpu._pair_x(p))),
+              f"node {name}: pair {p}'s labels on the card differ from the CPU's")
+
+    ev, ev_ref, ties = node_agreement(torch, pipe, f"node {name}")
+    want = per * ((thi - tlo) if name == "gcn" else thi)
+    check(ev["launches"]["segment_sum"] == want,
+          f"node {name} eval launched K4 {ev['launches']['segment_sum']} times, "
+          f"expected {want}")
+
+    xs = list(pipe._pairs(lo, lo + NODE_PARITY_STEPS))
+    parity = snapshot_step_parity(
+        torch, pipe, xs,
+        lambda x: pipe._loss_and_state(pipe.params, pipe.model_state, x),
+        f"node {name}")
+
+    def restart():
+        pipe.load_params(init[0])
+        pipe.load_opt_state(init[1])
+
+    restart()
+    run = node_epoch(torch, pipe)
+    check(run["launches"]["segment_sum"] == per * (hi - lo),
+          f"node {name} epoch launched K4 {run['launches']['segment_sum']} times "
+          f"for {hi - lo} pairs")
+    final = (_tree_clone(pipe.params), _tree_clone(pipe.opt_state),
+             [t_.clone() for t_ in _leaves_of(pipe.model_state)])
+
+    ck_dir = ROOT / "checkpoints" / f"chip_smoke_node_{name}"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        pipe.save_checkpoint(str(ck_dir), 1)
+        restart()
+        pipe.reset_epoch_state()
+        check(pipe.restore_checkpoint(str(ck_dir)) == 1, f"node {name}: checkpoint step")
+        check(_trees_equal(torch, pipe.params, final[0])
+              and _trees_equal(torch, pipe.opt_state, final[1])
+              and all(torch.equal(a, b) for a, b in zip(_leaves_of(pipe.model_state),
+                                                        final[2]))
+              and pipe.params["head"].device == pipe.device,
+              f"node {name}: checkpoint round trip changed the state")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    return dict(setup_seconds=setup_s, snapshots=T, capacity=pipe.capacity,
+                train_pairs=hi - lo, test_pairs=thi - tlo,
+                labels_bit_equal_to_cpu=True, eval=ev, eval_ref=ev_ref,
+                ndcg_diff=abs(ev["ndcg"] - ev_ref["ndcg"]), near_ties=ties,
+                step_parity=dict(steps=NODE_PARITY_STEPS, **parity), kernels=run,
+                checkpoint_bit_equal=True)
+
+
+def _leaves_of(state):
+    """A recurrent state's tensors (``()``, one tensor, or a tuple)."""
+    return list(state) if isinstance(state, tuple) else [state]
+
+
+def tgn_node_step_parity(torch, pipe, n_steps: int):
+    """The first ``n_steps`` train windows of the node TGN, each from the same
+    parameters and memory through K3 (K3b in the backward) and through the
+    plain version: the loss within STEP_LOSS_TOL; K3 against its plain
+    version on the step's own inputs and K3b on the step's own cotangent
+    against plain autograd. The whole-model gradients are reported (the
+    merge MLP's ReLUs, as on the link path). The kernels' update moves the
+    run on."""
+    import repro_torch.kernels.temporal_attention as ta
+    from repro_torch.models.tg import tgn
+    from repro_torch.train.nodeprop import _soft_cross_entropy
+
+    attention, seen = ta.temporal_attention, []
+
+    def spy(q, k, v, mask, *, mode="auto"):
+        out = attention(q, k, v, mask, mode=mode)
+        if mode == "auto":
+            rec = {"args": [t.detach().contiguous() for t in (q, k, v)]
+                   + [mask.contiguous()]}
+            seen.append(rec)
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous()))
+        return out
+
+    worst = {"loss": 0.0, "k3_max_abs_err": 0.0, "k3_grad_max_abs_err": 0.0,
+             "model_grad_rel": 0.0, "model_grad_name": None,
+             "steps_with_model_grads_beyond_1e-4": 0, "steps": 0}
+    windows = pipe.windows()
+    pipe.reset_epoch_state()
+    state = tgn.init_state(pipe.cfg, pipe.device)
+    ta.temporal_attention = spy
+    try:
+        for i in range(len(windows) - 1):
+            if worst["steps"] == n_steps:
+                break
+            if windows[i][0].num_events == 0:
+                continue
+            batch, seed_user = pipe._tgn_batch(windows[i][0])
+            labels = pipe._put(pipe._next_labels(i, seed_user))
+            out = {}
+            for mode in ("ref", "auto"):
+                pipe.mode = mode
+                loss = _soft_cross_entropy(pipe._embed(state, batch)
+                                           @ pipe.params["head"], labels)
+                out[mode] = (loss.detach(), pipe._grads(loss))
+            (loss, grads), (loss_ref, grads_ref) = out["auto"], out["ref"]
+            dl = abs(loss.item() - loss_ref.item())
+            check(dl <= STEP_LOSS_TOL, f"node TGN window {i}: loss {loss.item()} "
+                                       f"(K3) vs {loss_ref.item()} (plain)")
+            worst["loss"] = max(worst["loss"], dl)
+            check(len(seen) == 1 and "g" in seen[0],
+                  f"node TGN window {i}: {len(seen)} K3 calls recorded")
+            rec = seen.pop()
+            a, g = rec["args"], rec["g"]
+            err = compare(torch, ta.temporal_attention_kernel(*a),
+                          ta.temporal_attention_ref(*a), f"K3 node TGN window {i}")
+            gerr = max(compare(torch, x, y, f"K3b d{n} node TGN window {i}")
+                       for n, x, y in zip("qkv", ta.temporal_attention_bwd_kernel(g, *a),
+                                          plain_attention_grads(torch, g, *a)))
+            worst["k3_max_abs_err"] = max(worst["k3_max_abs_err"], err)
+            worst["k3_grad_max_abs_err"] = max(worst["k3_grad_max_abs_err"], gerr)
+            flat_ref, beyond = _flat(grads_ref), False
+            for name, gr in _flat(grads).items():
+                want = flat_ref[name]
+                e, scale = float((gr - want).abs().max()), float(want.abs().max())
+                beyond |= e > GRAD_RTOL * scale + GRAD_FLOOR
+                if scale and e / scale > worst["model_grad_rel"] and e > GRAD_FLOOR:
+                    worst.update(model_grad_rel=e / scale, model_grad_name=name)
+            worst["steps_with_model_grads_beyond_1e-4"] += int(beyond)
+            new_state = pipe._advance(state, batch)
+            pipe._update(grads)
+            state = new_state
+            worst["steps"] += 1
+    finally:
+        ta.temporal_attention = attention
+        pipe.mode = "auto"
+    torch.cuda.synchronize()
+    return worst
+
+
+def node_tgn_run(torch, data):
+    """``tgn`` through ``EventNodePipeline`` on the card: test NDCG through K3
+    (one launch per scored window; the warm windows only advance the
+    memory) and with the plain version; the first train windows held step
+    by step; one ``train_epoch()`` through K3 and K3b (one launch each per
+    train window with events) and test NDCG after it; a checkpoint round
+    trip; the node-0 padding rows' share of the active rows on the first
+    window where node 0 is active next (ROADMAP C)."""
+    import shutil
+
+    import numpy as np
+
+    t = time.perf_counter()
+    pipe = node_experiment("tgn").compile(data=data, device=DEVICE)
+    setup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    windows = pipe.windows()
+    windows_s = time.perf_counter() - t
+    init = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+    n_val, n_test = pipe._bounds()
+    busy = [i for i in range(len(windows) - 1) if windows[i][0].num_events]
+    n_train = sum(1 for i in busy if i < min(n_val, len(windows)) - 1)
+    n_scored = sum(1 for i in busy if n_test <= i + 1)
+
+    ev, ev_ref, ties = node_agreement(torch, pipe, "node TGN")
+    launched = {k: v for k, v in ev["launches"].items() if v}
+    check(launched == {"temporal_attention": n_scored},
+          f"node TGN eval launched {launched} for {n_scored} scored windows")
+    parity = tgn_node_step_parity(torch, pipe, NODE_PARITY_STEPS)
+
+    pipe.load_params(init[0])
+    pipe.load_opt_state(init[1])
+    run = node_epoch(torch, pipe)
+    launched = {k: v for k, v in run["launches"].items() if v}
+    check(launched == {"temporal_attention": n_train, "temporal_attention_bwd": n_train},
+          f"node TGN epoch launched {launched} for {n_train} train windows")
+    run["ms_per_window"] = 1e3 * run["epoch_seconds"] / n_train
+
+    ck_dir = ROOT / "checkpoints" / "chip_smoke_node_tgn"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        saved = _tree_clone(pipe.params), _tree_clone(pipe.opt_state)
+        pipe.save_checkpoint(str(ck_dir), 1)
+        pipe.load_params(init[0])
+        pipe.load_opt_state(init[1])
+        check(pipe.restore_checkpoint(str(ck_dir)) == 1, "node TGN: checkpoint step")
+        check(_trees_equal(torch, pipe.params, saved[0])
+              and _trees_equal(torch, pipe.opt_state, saved[1])
+              and pipe.params["head"].device == pipe.device,
+              "node TGN: checkpoint round trip changed the state")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    pipe.reset_epoch_state()
+    i = next(i for i in busy if windows[i + 1][1][0].sum() > 0)
+    users = len(np.unique(windows[i][0]["src"]))
+    _, seed_user = pipe._tgn_batch(windows[i][0])
+    active = pipe._next_labels(i, seed_user).sum(-1) > 0
+    pad = np.arange(len(seed_user)) >= users
+    padding = dict(window=i, users=users, bucket=len(seed_user),
+                   padding_rows=int(pad.sum()), active_rows=int(active.sum()),
+                   active_padding_rows=int(active[pad].sum()),
+                   padding_share_of_active=float(active[pad].sum() / active.sum()))
+    return dict(setup_seconds=setup_s, windows_seconds=windows_s, windows=len(windows),
+                train_windows=n_train, scored_windows=n_scored, eval=ev, eval_ref=ev_ref,
+                ndcg_diff=abs(ev["ndcg"] - ev_ref["ndcg"]), near_ties=ties,
+                step_parity=parity, kernels=run, checkpoint_bit_equal=True,
+                node0_padding=padding)
+
+
+def node_pf_run(data):
+    """``pf`` through ``EventNodePipeline``: test NDCG on a pipeline made for
+    the card and on one made for the CPU (host numpy in both), bit-equal."""
+    t = time.perf_counter()
+    ndcg = node_experiment("pf").compile(data=data, device=DEVICE).evaluate("test")[0]
+    seconds = time.perf_counter() - t
+    cpu = node_experiment("pf").compile(data=data, device="cpu").evaluate("test")[0]
+    check(ndcg == cpu and 0.0 < ndcg <= 1.0, f"pf test NDCG {ndcg} vs {cpu} on the CPU")
+    return dict(ndcg=ndcg, seconds=seconds, bit_equal_to_cpu=True)
+
+
+def disc_hold(want, got, reduce: str, what: str) -> float:
+    """Integer columns bit for bit; the features of ``first``, ``last`` and
+    ``max``, and ``count``'s count column, bit for bit; sums (``sum``,
+    ``mean``, ``count``'s summed features) within DISC_SUM_RTOL of the
+    largest entry. Returns the largest relative difference of a sum."""
+    import numpy as np
+
+    for name in ("src", "dst", "edge_t", "node_ids", "node_t"):
+        a, b = getattr(want, name), getattr(got, name)
+        check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+              f"{what}: {name} differs")
+    a, b = want.edge_feats, got.edge_feats
+    check((a is None) == (b is None), f"{what}: edge features present in one only")
+    if a is None:
+        return 0.0
+    check(a.shape == b.shape, f"{what}: features {a.shape} vs {b.shape}")
+    exact = {"first": a.shape[1], "last": a.shape[1], "max": a.shape[1],
+             "count": 1}.get(reduce, 0)
+    if exact:
+        check(np.array_equal(a[:, -exact:], b[:, -exact:]),
+              f"{what}: {reduce} features not bit-equal")
+    a, b = a[:, :a.shape[1] - exact], b[:, :b.shape[1] - exact]
+    if not a.size:
+        return 0.0
+    rel = float(np.abs(a - b).max() / max(float(np.abs(a).max()), 1e-30))
+    check(rel <= DISC_SUM_RTOL, f"{what}: summed features off by {rel:.3e} relative")
+    return rel
+
+
+def table5(torch, graphs):
+    """Table 5 (``benchmarks/table5_discretize.py``) on the card:
+    ``discretize_device`` against ``discretize`` (numpy) and
+    ``discretize_naive`` at ``reduce="count"``, hourly, on full-scale
+    ``wikipedia``, ``reddit`` and ``lastfm`` (``disc_hold``), the int32 guard
+    passing on each (the device path ran); times: ``discretize`` and
+    ``discretize_device`` (host arrays in, ``DGData`` out: the transfers,
+    the core, the count's read and the slices) by host clock, median of
+    runs, the core alone on staged tensors by CUDA events (what the
+    reference's benchmark times), ``discretize_naive`` once; the speedups
+    as Table 5 gives them. Then every reduction once on ``wikipedia``, and
+    the daily axis of ``genre``, against the numpy path."""
+    from repro_torch.core import TimeDelta, discretize, discretize_device, discretize_naive
+    from repro_torch.core.discretize import (
+        _host_ticks,
+        device_discretize_supported,
+        discretize_edges_padded,
+    )
+
+    def host_s(fn, runs):
+        out = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return statistics.median(out)
+
+    def core_ms(data, unit, reduce):
+        k = unit.ticks_per(data.granularity)
+        t_staged, k_dev = _host_ticks(data.edge_t, k)
+        put = lambda a: torch.as_tensor(a).to(DEVICE)  # noqa: E731
+        feats = (torch.zeros((data.num_edge_events, 0), device=DEVICE)
+                 if data.edge_feats is None else put(data.edge_feats))
+        args = (put(data.src), put(data.dst), put(t_staged), feats)
+        return time_ms(torch, lambda: discretize_edges_padded(
+            *args, k=k_dev, reduce=reduce, capacity=data.num_edge_events,
+            feat_dim=data.edge_feat_dim), 5, 3)
+
+    out, unit = {}, TimeDelta("h")
+    for name in ("wikipedia", "reddit", "lastfm"):
+        data = graphs[name]
+        check(device_discretize_supported(data, unit.ticks_per(data.granularity)),
+              f"Table 5 {name}: the int32 guard refused the graph")
+        fast = discretize(data, unit, "count")
+        dev = discretize_device(data, unit, "count")
+        rel = disc_hold(fast, dev, "count", f"Table 5 {name} device vs numpy")
+        t = time.perf_counter()
+        naive = discretize_naive(data, unit, "count")
+        naive_s = time.perf_counter() - t
+        disc_hold(naive, dev, "count", f"Table 5 {name} device vs naive")
+        r = out[name] = dict(
+            events=data.num_edge_events, classes=dev.num_edge_events,
+            edge_feat_dim=data.edge_feat_dim, guard_passed=True, sum_max_rel_diff=rel,
+            naive_s=naive_s,
+            numpy_s=host_s(lambda: discretize(data, unit, "count"), 3),
+            device_s=host_s(lambda: discretize_device(data, unit, "count"), 5),
+            device_core_ms=core_ms(data, unit, "count"))
+        r.update(speedup_numpy_vs_naive=naive_s / r["numpy_s"],
+                 speedup_device_vs_naive=naive_s / r["device_s"],
+                 speedup_device_core_vs_naive=1e3 * naive_s / r["device_core_ms"],
+                 device_vs_numpy=r["numpy_s"] / r["device_s"])
+        del fast, dev, naive
+
+    wiki = graphs["wikipedia"]
+    out["wikipedia_reductions"] = {
+        reduce: disc_hold(discretize(wiki, unit, reduce), discretize_device(wiki, unit, reduce),
+                          reduce, f"wikipedia {reduce}")
+        for reduce in DISC_REDUCTIONS}
+    genre, day = graphs["genre"], TimeDelta("d")
+    check(device_discretize_supported(genre, day.ticks_per(genre.granularity)),
+          "genre daily: the int32 guard refused the graph")
+    rel = disc_hold(discretize(genre, day, "count"), discretize_device(genre, day, "count"),
+                    "count", "genre daily")
+    out["genre_daily"] = dict(
+        events=genre.num_edge_events, sum_max_rel_diff=rel, guard_passed=True,
+        numpy_s=host_s(lambda: discretize(genre, day, "count"), 3),
+        device_s=host_s(lambda: discretize_device(genre, day, "count"), 5),
+        device_core_ms=core_ms(genre, day, "count"))
+    return out
+
+
+def node_phase(torch, wiki):
+    """The node tasks (Table 4) and the device discretization (Table 5):
+    ``node_kernels``; GCN, GCLSTM and T-GCN (``node_snapshot_run``), ``tgn``
+    (``node_tgn_run``) and ``pf`` (``node_pf_run``) at Table 4's
+    configuration; ``table5``. Seconds of each part."""
+    from repro_torch.data import generate
+
+    t0 = time.perf_counter()
+    genre = generate("genre", scale=1.0)
+    out = {"genre": dict(nodes=genre.num_nodes, events=genre.num_edge_events,
+                         generate_seconds=time.perf_counter() - t0)}
+    t = time.perf_counter()
+    out["kernels"] = node_kernels(torch, genre)
+    out["kernels_seconds"] = time.perf_counter() - t
+    cpu = node_experiment("gcn").compile(data=genre, device="cpu")
+    for name, per in NODE_SNAPSHOT_MODELS:
+        t = time.perf_counter()
+        out[name] = node_snapshot_run(torch, genre, name, per, cpu)
+        out[name]["seconds"] = time.perf_counter() - t
+    del cpu
+    t = time.perf_counter()
+    out["tgn"] = node_tgn_run(torch, genre)
+    out["tgn"]["seconds"] = time.perf_counter() - t
+    out["pf"] = node_pf_run(genre)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    graphs = {"wikipedia": wiki, "genre": genre,
+              "reddit": generate("reddit", scale=1.0),
+              "lastfm": generate("lastfm", scale=1.0)}
+    out["table5"] = table5(torch, graphs)
+    out["table5_seconds"] = time.perf_counter() - t
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4228,6 +4881,13 @@ def main() -> int:
                                             "state": ATOL},
               "nvidia_smi": nvidia_smi_line(), **zo})
         torch.cuda.empty_cache()
+        nd = node_phase(torch, wiki)
+        emit({"phase": "node", "tolerance": {
+            "atol": ATOL, "rtol": RTOL, "ndcg": NDCG_TOL, "near_tie": NEAR_TIE,
+            "step_loss": DTDG_STEP_LOSS_TOL, "model_grad_rtol": GRAD_RTOL,
+            "model_grad_floor": GRAD_FLOOR, "discretize_sum_rtol": DISC_SUM_RTOL},
+            "nvidia_smi": nvidia_smi_line(), **nd})
+        torch.cuda.empty_cache()
 
         clock = [profiler_clock(torch), profiler_clock(torch, PROFILE_MARGIN_S)]
         lmk, lmk_cases = lm_kernels_phase(torch)
@@ -4287,7 +4947,19 @@ def main() -> int:
              "tgat2_host_eval": t2["host"]["eval"], "tgat2_host_train": t2["host"]["kernels"],
              **{f"uniform_{label}_{part}": zo["uniform"][label][key]
                 for label in ("host", "device")
-                for part, key in (("eval", "eval"), ("train", "kernels"))}}
+                for part, key in (("eval", "eval"), ("train", "kernels"))},
+             "node_tgn_eval": nd["tgn"]["eval"], "node_tgn_train": nd["tgn"]["kernels"]}
+    node_k = nd["kernels"]
+    node_seg = {f"node_{name}_{part}": nd[name][key]["launches"]["segment_sum"]
+                for name, _ in NODE_SNAPSHOT_MODELS
+                for part, key in (("eval", "eval"), ("train", "kernels"))}
+
+    def node_shape(key):
+        """The node path's numbers of one kernel at its shape."""
+        return {f: node_k[key][f] for f in (
+            "S", "K", "H", "D", "E", "G", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_share", "device_us", "library_device_us",
+            "bound_share_device") if f in node_k[key]}
     t2k = t2["kernels"]
 
     def tgat2_shapes(prefix):
@@ -4357,6 +5029,7 @@ def main() -> int:
                                        "library_ms", "device_us", "library_device_us",
                                        "bound_share", "bound_share_device")},
         "tgat2": tgat2_shapes("K3_"),
+        "node": node_shape("K3"),
     }, {
         "name": "temporal_attention_bwd", "route": "cuda",
         "source": TA_BWD_SOURCE, "replaces": TPU_K3B,
@@ -4377,19 +5050,23 @@ def main() -> int:
                                        "library_device_us", "bound_share",
                                        "bound_share_device")},
         "tgat2": tgat2_shapes("K3b_"),
+        "node": node_shape("K3b"),
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": SEG_SOURCE, "replaces": TPU_K4,
-        "launches": dt["eval"]["launches"] + dt["kernels"]["launches"],
+        "launches": (dt["eval"]["launches"] + dt["kernels"]["launches"]
+                     + sum(node_seg.values())),
         "launches_by_path": {"dtdg_eval": dt["eval"]["launches"],
-                             "dtdg_train": dt["kernels"]["launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in seg.values()),
+                             "dtdg_train": dt["kernels"]["launches"], **node_seg},
+        "max_abs_err": max([r["max_abs_err"] for r in seg.values()]
+                           + [node_k[k]["max_abs_err"] for k in ("K4_d1", "K4_d32")]),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"], "shape": "E=256 D=64 G=9000",
         "device_us": k4["device_us"], "library_device_us": k4["library_device_us"],
         "daily": {k: seg["d_d64"][k] for k in ("E", "ms", "device_us", "library_ms",
                                                "library_device_us", "bound_ms")},
+        "node": {"d1": node_shape("K4_d1"), "d32": node_shape("K4_d32")},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": FA_SOURCE, "replaces": TPU_K5,

@@ -1,7 +1,8 @@
 """Host layer and device-resident sampling of the PyTorch port.
 
 Numpy copies of the reference's event types and storage, views, granularity, batches,
-hooks, negatives and host discretization (bit-equal to ``repro.core``),
+hooks, negatives and host discretization (bit-equal to ``repro.core``; the
+dict baseline ``discretize_naive`` too, and ``discretize_device`` on the card),
 plus the torch ``DeviceRecencySampler`` and ``DeviceUniformSampler``, the
 host ``UniformSampler``, the link recipe's recency and uniform branches, the
 ``PrefetchLoader`` that stages batches on a side CUDA stream, and the DTDG
@@ -12,6 +13,12 @@ snapshot recipe.
 from repro_torch.core.batch import Batch
 from repro_torch.core.device_sampler import DeviceRecencySampler
 from repro_torch.core.device_uniform import DeviceUniformSampler
+from repro_torch.core.discretize import (
+    discretize,
+    discretize_device,
+    discretize_edges_padded,
+    discretize_naive,
+)
 from repro_torch.core.events import EdgeEvent, NodeEvent
 from repro_torch.core.granularity import EventOrderedError, TimeDelta
 from repro_torch.core.graph import DGData, DGraph, SnapshotTensor
@@ -35,6 +42,10 @@ __all__ = [
     "DGData",
     "DGraph",
     "DGDataLoader",
+    "discretize",
+    "discretize_device",
+    "discretize_edges_padded",
+    "discretize_naive",
     "EdgeEvent",
     "EventOrderedError",
     "Hook",

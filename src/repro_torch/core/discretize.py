@@ -14,10 +14,13 @@ Port of ``repro.core.discretize``:
     ``scatter_reduce``): what ``core.loader.snapshot_tensor`` runs on the
     card; ``device_discretize_supported`` is its int32 guard (the
     reference's ``jax_discretize_supported``) and ``_host_ticks`` stages
-    timestamps for it.
-
-The reference's ``discretize_jax`` and ``discretize_naive`` (the Table 5
-comparison points) are not ported yet (ROADMAP A).
+    timestamps for it;
+  * ``discretize_device`` — the whole-graph device form (the reference's
+    ``discretize_jax``): the core at ``capacity=E`` on the card, one read
+    of the valid count, node events collapsed by ``torch.unique``;
+    ``discretize(..., backend="device")`` reaches it;
+  * ``discretize_naive`` — the UTG-style dict baseline, a copy of the
+    reference's: Table 5's comparison point and the oracle of the tests.
 
 Reductions: first | last | sum | mean | max | count.
 ``count`` appends (or creates) a 1-dim feature holding the multiplicity.
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.core.granularity import TimeDelta
 from repro_torch.core.graph import DGData
+from repro_torch.device import resolve_device
 
 _REDUCTIONS = ("first", "last", "sum", "mean", "max", "count")
 
@@ -98,20 +102,23 @@ def _reduce_feats(
 
 
 def discretize(
-    data: DGData, new_gran: TimeDelta, reduce: str = "first", backend: str = "numpy"
+    data: DGData, new_gran: TimeDelta, reduce: str = "first",
+    backend: str = "numpy", device="cuda",
 ) -> DGData:
-    """Vectorized ``psi_r(G, tau) -> (G_hat, tau_hat)`` on the host.
+    """Vectorized ``psi_r(G, tau) -> (G_hat, tau_hat)``.
 
-    ``backend`` is ``"numpy"``; the reference's ``"jax"`` backend
-    (``discretize_jax``) is not ported yet (ROADMAP A).
+    ``backend="numpy"`` runs on the host; ``backend="device"`` runs
+    ``discretize_device`` on ``device`` (the reference's ``"jax"``
+    backend, whose name the port refuses).
     """
     if reduce not in _REDUCTIONS:
         raise ValueError(f"unknown reduction {reduce!r}; expected one of {_REDUCTIONS}")
+    if backend == "device":
+        return discretize_device(data, new_gran, reduce=reduce, device=device)
     if backend != "numpy":
-        raise NotImplementedError(
-            f"discretize backend {backend!r} is not ported (ROADMAP A: "
-            f"discretize_jax); the port discretizes with backend='numpy' and "
-            f"builds snapshots on the device with core.loader.snapshot_tensor")
+        raise ValueError(
+            f"unknown discretize backend {backend!r}; the port has 'numpy' "
+            f"and 'device' (the reference's 'jax' backend is 'device' here)")
     k = _coarse_ticks(data, new_gran)
     ct = data.edge_t // k
 
@@ -277,3 +284,113 @@ def discretize_edges_padded(src, dst, t, feats, *, k: int, reduce: str,
             valid = torch.arange(capacity, device=dev) < count
             out_feats = torch.where(valid[:, None], out_feats, 0.0)
     return out_src, out_dst, out_ct, out_feats, count
+
+
+def discretize_device(data: DGData, new_gran: TimeDelta, reduce: str = "first",
+                      device="cuda") -> DGData:
+    """``psi_r`` on ``device`` over the fixed-capacity core.
+
+    Runs ``discretize_edges_padded`` at ``capacity=E`` (an upper bound on
+    the number of classes), reads the valid count once and slices; node
+    events collapse on the device too, keyed by ``tick * n + node`` with
+    reduction 'last' (inputs are time-sorted, so the largest index of a
+    key's events is its latest). A graph beyond the int32 guard
+    (``device_discretize_supported``), or one without edge events, takes
+    the host numpy path, as the reference's ``discretize_jax`` does.
+    """
+    if reduce not in _REDUCTIONS:
+        raise ValueError(f"unknown reduction {reduce!r}; expected one of {_REDUCTIONS}")
+    dev = resolve_device(device)
+    k = _coarse_ticks(data, new_gran)
+    e = data.num_edge_events
+    if e == 0 or not device_discretize_supported(data, k):
+        return discretize(data, new_gran, reduce=reduce, backend="numpy")
+    n = max(int(data.num_nodes), 1)
+
+    def put(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype=dtype)).to(dev)
+
+    feat_dim = data.edge_feat_dim
+    feats_in = (torch.zeros((e, 0), dtype=torch.float32, device=dev)
+                if feat_dim == 0 else put(data.edge_feats, np.float32))
+    t_staged, k_dev = _host_ticks(data.edge_t, k)
+    usrc, udst, ut, feats, count = discretize_edges_padded(
+        put(data.src), put(data.dst), put(t_staged), feats_in,
+        k=k_dev, reduce=reduce, capacity=e, feat_dim=feat_dim)
+    g = int(count)  # one host read to slice the valid prefix
+
+    node_kwargs = {}
+    if data.node_ids is not None:
+        nids = put(data.node_ids)
+        nt_staged, nk_dev = _host_ticks(data.node_t, k)
+        nct = put(nt_staged) // nk_dev
+        if len(data.node_ids):
+            nukey, nseg = torch.unique(nct * n + nids, return_inverse=True)
+            node_kwargs = dict(node_ids=(nukey % n).cpu().numpy(),
+                               node_t=(nukey // n).cpu().numpy())
+            if data.node_feats is not None:
+                idx = torch.arange(len(nseg), device=dev)
+                npick = torch.full((len(nukey),), -1, dtype=idx.dtype,
+                                   device=dev).scatter_reduce_(0, nseg, idx, "amax")
+                node_kwargs["node_feats"] = put(data.node_feats)[npick].cpu().numpy()
+        else:
+            node_kwargs = dict(node_ids=nids.cpu().numpy(),
+                               node_t=nct.cpu().numpy())
+
+    return DGData.from_arrays(
+        usrc[:g].cpu().numpy(),
+        udst[:g].cpu().numpy(),
+        ut[:g].cpu().numpy(),
+        edge_feats=None if feats is None else feats[:g].cpu().numpy(),
+        static_node_feats=data.static_node_feats,
+        granularity=new_gran,
+        num_nodes=data.num_nodes,
+        **node_kwargs,
+    )
+
+
+def discretize_naive(data: DGData, new_gran: TimeDelta, reduce: str = "first") -> DGData:
+    """UTG-style dict-based baseline (deliberately unvectorized).
+
+    This mirrors the reference implementation the paper benchmarks against in
+    Table 5: python loops over events, dict of (snapshot, src, dst) keys.
+    """
+    k = _coarse_ticks(data, new_gran)
+    groups: dict = {}
+    for i in range(data.num_edge_events):
+        key = (int(data.edge_t[i]) // k, int(data.src[i]), int(data.dst[i]))
+        groups.setdefault(key, []).append(i)
+
+    keys = sorted(groups.keys())
+    src = np.array([kk[1] for kk in keys], dtype=np.int64)
+    dst = np.array([kk[2] for kk in keys], dtype=np.int64)
+    t = np.array([kk[0] for kk in keys], dtype=np.int64)
+    feats = None
+    if data.edge_feats is not None or reduce == "count":
+        rows = []
+        for kk in keys:
+            idx = groups[kk]
+            if data.edge_feats is None:
+                rows.append(np.array([len(idx)], dtype=np.float32))
+                continue
+            f = data.edge_feats[idx]
+            if reduce == "first":
+                r = f[0]
+            elif reduce == "last":
+                r = f[-1]
+            elif reduce == "sum":
+                r = f.sum(0)
+            elif reduce == "mean":
+                r = f.mean(0)
+            elif reduce == "max":
+                r = f.max(0)
+            elif reduce == "count":
+                r = np.concatenate([f.sum(0), [np.float32(len(idx))]])
+            rows.append(r)
+        feats = np.stack(rows).astype(np.float32)
+
+    return DGData.from_arrays(
+        src, dst, t, edge_feats=feats,
+        static_node_feats=data.static_node_feats,
+        granularity=new_gran, num_nodes=data.num_nodes,
+    )

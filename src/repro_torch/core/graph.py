@@ -241,13 +241,15 @@ class DGData:
         granularity: TimeDelta | str,
         reduce: str = "first",
         backend: str = "numpy",
+        device="cuda",
     ) -> "DGData":
-        """Coarsen to ``granularity`` via ``psi_r`` on the host
-        (``core/discretize.py``; ``backend="numpy"`` only)."""
+        """Coarsen to ``granularity`` via ``psi_r`` (``core/discretize.py``):
+        on the host with ``backend="numpy"``, on ``device`` with
+        ``backend="device"``."""
         from repro_torch.core.discretize import discretize as _disc
 
         return _disc(self, TimeDelta.coerce(granularity), reduce=reduce,
-                     backend=backend)
+                     backend=backend, device=device)
 
     def to_snapshots(
         self,

@@ -1,13 +1,25 @@
 """``tg.Experiment`` — the declarative front door of the port.
 
 Same specs and serialization as ``repro.tg.Experiment``. ``compile`` covers
-both link quadrants on ``device`` (``"cuda"`` by default), with
-``TrainSpec.telemetry`` as a JSONL ``FileSink``: the event stream
-(``CTDGLinkPipeline``: TGAT, TGN, GraphMixer, DyGFormer or TPNet over
-the recency or the uniform sampler, on the host or the device) and, with ``DataSpec.discretization`` set, the
-snapshots (``DTDGLinkPipeline``); ``run`` compiles, trains through
-``TrainLoop`` and evaluates. The node quadrants, out-of-core storage and
-data sharding raise ``NotImplementedError`` until their slices land.
+every quadrant on ``device`` (``"cuda"`` by default), with
+``TrainSpec.telemetry`` as a JSONL ``FileSink``:
+
+  =========  =======================  ========================================
+  task       discretization           pipeline
+  =========  =======================  ========================================
+  ``link``   ``None`` (event stream)  ``CTDGLinkPipeline`` (TGAT, TGN,
+                                      GraphMixer, DyGFormer or TPNet over the
+                                      recency or the uniform sampler, on the
+                                      host or the device)
+  ``link``   a ``TimeDelta``          ``DTDGLinkPipeline`` (snapshots)
+  ``node``   a ``TimeDelta`` (the     ``DTDGNodePipeline`` for snapshot
+             label window)            models; ``EventNodePipeline`` for
+                                      ``pf``/``tgn`` (event windows)
+  =========  =======================  ========================================
+
+``run`` compiles, trains through ``TrainLoop`` and evaluates. Out-of-core
+storage and data sharding raise ``NotImplementedError`` until their slices
+land.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from repro_torch.tg.specs import DataSpec, ModelSpec, SamplerSpec, TrainSpec
 
 CTDG_LINK_MODELS = ("tgat", "tgn", "graphmixer", "dygformer", "tpnet")
 DTDG_MODELS = ("gcn", "gclstm", "tgcn")
+EVENT_NODE_MODELS = ("pf", "tgn")
 
 TASKS = ("link", "node")
 
@@ -88,19 +101,17 @@ class Experiment:
 
         ``data`` overrides ``DataSpec``'s generated stream with a pre-built
         ``DGData``; ``telemetry`` overrides the ``TrainSpec.telemetry``
-        writer. The link quadrants are ported: the event stream without
-        ``DataSpec.discretization``, the snapshot pipeline with it.
+        writer. See the module table for the pipeline each task and
+        discretization axis gives.
         """
         resolve_device(device)
         d, m, t = self.data, self.model, self.train
-        if self.task != "link":
-            raise NotImplementedError(
-                "the port compiles the link quadrants (task='link'); the node "
-                "pipelines are a later slice (ROADMAP A)")
         if d.storage is not None or t.data_shards > 1:
             raise NotImplementedError(
                 "out-of-core storage and data sharding are later slices of "
                 "the port (ROADMAP A)")
+        if self.task == "node":
+            return self._compile_node(data, device, telemetry)
         names = CTDG_LINK_MODELS if d.discretization is None else DTDG_MODELS
         if m.name not in names:
             kind = ("an event-stream (CTDG) link" if d.discretization is None
@@ -108,10 +119,7 @@ class Experiment:
             raise ValueError(
                 f"model {m.name!r} is not {kind} model; have {names} (set or "
                 f"drop DataSpec.discretization for the other pipeline)")
-        if data is None:
-            from repro_torch.data import generate
-
-            data = generate(d.dataset, scale=d.scale)
+        data = self._dataset(data)
         tel = self._telemetry(telemetry)
         if d.discretization is not None:
             from repro_torch.train.loop import DTDGLinkPipeline
@@ -136,6 +144,46 @@ class Experiment:
             telemetry=tel, device=device,
         )
 
+    def _dataset(self, data=None):
+        """The given ``DGData``, else ``DataSpec``'s generated stream."""
+        if data is not None:
+            return data
+        from repro_torch.data import generate
+
+        return generate(self.data.dataset, scale=self.data.scale)
+
+    def _compile_node(self, data, device, telemetry):
+        """The node task: ``DataSpec.discretization`` is the label window of
+        both pipeline families."""
+        d, m, t = self.data, self.model, self.train
+        if d.discretization is None:
+            raise ValueError(
+                "task='node' needs DataSpec.discretization — it is the "
+                "prediction-window axis for both pipeline families"
+            )
+        if m.name not in DTDG_MODELS + EVENT_NODE_MODELS:
+            raise ValueError(
+                f"model {m.name!r} is not a node-task model; have "
+                f"{DTDG_MODELS + EVENT_NODE_MODELS}"
+            )
+        from repro_torch.train.nodeprop import DTDGNodePipeline, EventNodePipeline
+
+        stream, tel = self._dataset(data), self._telemetry(telemetry)
+        if m.name in DTDG_MODELS:
+            return DTDGNodePipeline(
+                m.name, stream, unit=d.discretization,
+                lr=t.lr, seed=t.seed, capacity=d.capacity,
+                val_ratio=d.val_ratio, test_ratio=d.test_ratio,
+                compiled=t.compiled, device=device, telemetry=tel,
+                **dict(m.kwargs),
+            )
+        return EventNodePipeline(
+            m.name, stream, unit=d.discretization,
+            lr=t.lr, seed=t.seed,
+            val_ratio=d.val_ratio, test_ratio=d.test_ratio,
+            device=device, telemetry=tel, **dict(m.kwargs),
+        )
+
     # -- execution -------------------------------------------------------
     def run(self, data=None, splits: Tuple[str, ...] = ("test",), log=None,
             device="cuda") -> Dict[str, Any]:
@@ -145,7 +193,7 @@ class Experiment:
         cadence ``eval_every`` on ``eval_split``, checkpoint cadence
         ``ckpt_every`` into ``ckpt_dir``), then evaluates each of ``splits``.
         Returns ``{"pipeline", "history", "metrics"}``; ``metrics`` maps a
-        split to its MRR.
+        split to the task metric (link: MRR, node: NDCG@10).
         """
         from repro_torch.train.loop import TrainLoop
 

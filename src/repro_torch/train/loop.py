@@ -19,6 +19,9 @@
     card; the reference's ``lax.scan`` epoch becomes a Python loop over
     prediction pairs running the same step (``SnapshotPairPipeline`` holds
     the split and pair plumbing);
+  * the node task's pipelines (``DTDGNodePipeline``, ``EventNodePipeline``)
+    live in ``train/nodeprop.py`` on ``SnapshotPairPipeline`` and
+    ``_ParamsAndOptimizer``;
   * ``TrainLoop`` — the epoch engine: ``train_epoch`` / ``evaluate`` /
     ``save_checkpoint`` at the requested cadences, its history rebuilt from
     the telemetry records it emits;
@@ -640,6 +643,16 @@ class SnapshotPairPipeline:
             self._xs_cache[key] = build()
         return self._xs_cache[key]
 
+    def _init_state(self):
+        """The snapshot model's recurrent state at the start of a pass."""
+        return snapshot.init_state(self.model_name, self.cfg, self.device)
+
+    def load_model_state(self, state) -> None:
+        """Install a recurrent state (``()``, one tensor or array, or a
+        tuple of them, as ``init_state`` lays it out) on the device."""
+        self.model_state = _state_map(
+            lambda t: _on_device(t, self.device, torch.float32), state)
+
 
 def _state_map(fn, state):
     """Apply ``fn`` to every tensor of a recurrent state (``()``, one
@@ -738,15 +751,6 @@ class DTDGLinkPipeline(SnapshotPairPipeline, _ParamsAndOptimizer):
         self._cursor = 0  # next train pair (mid-epoch checkpoint resume)
 
     # ------------------------------------------------------------------
-    def _init_state(self):
-        return snapshot.init_state(self.model_name, self.cfg, self.device)
-
-    def load_model_state(self, state) -> None:
-        """Install a recurrent state (``()``, one tensor or array, or a
-        tuple of them, as ``init_state`` lays it out) on the device."""
-        self.model_state = _state_map(
-            lambda t: _on_device(t, self.device, torch.float32), state)
-
     def _scores(self, params, x, state):
         """The step function every path runs: the model on snapshot p, then
         the decoder's logits for snapshot p+1's edges (``pos`` (C,)) and

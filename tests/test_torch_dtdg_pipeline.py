@@ -11,8 +11,8 @@ loss (1e-5), every gradient (1e-4 of the leaf's largest entry), the carried
 state (2e-5) and the AdamW update, and checkpoints in both directions (bit
 for bit). Held within the port: the compiled path against the hook path and
 a chunked epoch against a whole one (bit-identical), the mid-epoch cursor
-resume, the empty val split, ``Experiment`` routing and the row purity of
-the port's own negatives.
+resume, the empty val split, ``Experiment`` routing (the node task's too)
+and the row purity of the port's own negatives.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from repro_torch.data import generate
 from repro_torch.models.tg.common import bce_link_loss
 from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
 from repro_torch.train.loop import DTDGLinkPipeline, SnapshotLinkTrainer
+from repro_torch.train.nodeprop import DTDGNodePipeline
 
 MODELS = ("gcn", "gclstm", "tgcn")
 KW = dict(snapshot_unit="h", d_embed=16, seed=3)
@@ -279,9 +280,18 @@ def test_experiment_compiles_the_snapshot_quadrant(tmp_path):
     with pytest.raises(ValueError, match="event-stream"):
         Experiment(data=DataSpec("tiny"),
                    model=ModelSpec("gcn")).compile(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    # The node task compiles the snapshot models to the node pipeline; it
+    # needs the label window, and refuses link-only models.
+    node = Experiment(data=DataSpec("tiny", discretization="h"),
+                      model=ModelSpec("gcn", {"d_embed": 8, "num_cats": 6}),
+                      task="node").compile(device="cpu")
+    assert isinstance(node, DTDGNodePipeline) and node.num_cats == 6
+    with pytest.raises(ValueError, match="needs DataSpec.discretization"):
+        Experiment(data=DataSpec("tiny"), model=ModelSpec("gcn"),
+                   task="node").compile(device="cpu")
+    with pytest.raises(ValueError, match="not a node-task model"):
         Experiment(data=DataSpec("tiny", discretization="h"),
-                   model=ModelSpec("gcn"), task="node").compile(device="cpu")
+                   model=ModelSpec("tgat"), task="node").compile(device="cpu")
 
 
 def test_legacy_run_epoch_shim(stream):
