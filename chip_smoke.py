@@ -5,7 +5,8 @@
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and the CUDA
 toolkit's ``nvcc``; exits non-zero, printing no result, without them or
-outside a checkout of the repository. Phases, each printed as a JSON line:
+outside a checkout of the repository. Phases, each printed as a JSON line
+(with ``at_s``, the script's seconds when the phase ended):
 
 1. ``env``     — torch and CUDA versions, the card.
 2. ``build``   — nvcc builds every kernel source of the port (seconds, and
@@ -119,7 +120,7 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    within 1e-5 relative, every gradient within 1e-4 of its leaf's largest
    entry + 1e-7, TPNet's new state), one ``train_epoch()`` and val MRR
    after it, a checkpoint round trip (TPNet's ``{"R", "last"}`` too) and
-   the card's busy share over 30 train steps; then 2-layer TGAT over
+   the card's busy share over 15 train steps; then 2-layer TGAT over
    ``SamplerSpec(kind="uniform")`` on the host and with ``device=True``:
    ``evaluate("val")`` through K3 (three launches a scored batch) and with
    the plain version (MRR within 1e-4, the sampler's state and counter
@@ -158,7 +159,42 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    reductions bit for bit, sums within 1e-5 relative; the int32 guard
    passing), their times and speedups, every reduction on ``wikipedia``
    and genre's daily axis.
-14. ``lm_kernels`` — the LM serving slice's kernels against their plain
+14. ``storage`` — out-of-core storage on full-scale ``wikipedia``: the
+   store written by ``MmapStore.from_data`` to a temporary directory
+   (seconds, bytes on disk, ``is_intact``); the quickstart off the
+   in-memory stream and off ``compile(MmapStore(path))``:
+   ``evaluate("val")`` through K1 (119 launches), MRR and the sampler
+   state after it bit-equal; one ``train_epoch()`` each through K1 and K2
+   (552 launches each) and val MRR after it, bit-equal to the in-memory
+   epoch where two in-memory epochs (this one and the train phase's) are
+   bit-equal, else within EPOCH_LOSS_TOL / TRAIN_MRR_TOL (which held is
+   printed), and every one of its 552 train batches bit-equal, key by
+   key, to the in-memory pipeline's; the pages released once per batch
+   (``storage/windows_released``), the process's RSS; ``streaming_csr``
+   against the in-RAM build of both uniform samplers (bit-equal, or the
+   same multiset per node where events share a ``(node, time)``); 2-layer
+   TGAT over the store-built device uniform sampler: ``evaluate("val")``
+   through K3 (357 launches) with the MRR of the in-memory pipeline given
+   the same CSR, 3 train steps on the card held against the CPU (K3 and
+   K3b counted); the store-built host uniform sampler's first 10 batches
+   bit-equal to the in-memory one's; ``trace_capture`` around 5
+   store-backed train steps (the trace names K1's and K2's kernels) and
+   ``device_memory_gauges`` (the five gauges, ``bytes_in_use`` equal to
+   ``torch.cuda.memory_allocated()``).
+15. ``serve``  — the online graph service at the reference's widths (k 8,
+   ``d_model`` 32, ``time_dim`` 8, ``max_batch`` 32) over wikipedia's
+   9,000 nodes: 20,000 events ingested one by one (events/s) with a
+   snapshot at 19,000; 2,000 link and 256 embed requests under
+   ``torch.profiler`` (idle share, device ms per flush, latency p50 / p99
+   per tier); the same events and requests through the service on the CPU
+   in a process of its own (``serve_cpu``): sampler and EdgeBank state
+   bit-equal, scores within SERVE_TOL, embeddings within SERVE_TOL of
+   their largest entry, every answer from the model tier with no model
+   error; 224 link requests again in flushes of 1, 7 and 32, and a fresh
+   service restored from the snapshot replaying the rest with 5
+   duplicates: bit-identical answers; the chaos run of
+   ``tests/test_serving.py`` on the card.
+16. ``lm_kernels`` — the LM serving slice's kernels against their plain
    versions on the card at its shapes (B = 4, S = 4,096, bfloat16): K5
    (flash attention) for hymba-1.5b (25 query over 5 kv heads, D = 64,
    window 1024) and qwen3-0.6b (16 over 8, D = 128, causal), K6 (the SSD
@@ -174,7 +210,7 @@ outside a checkout of the repository. Phases, each printed as a JSON line:
    tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
    rows, steep decay in both types, groups incl. two at N = 128, P and N
    not multiples of 16); ``profiler_clock`` before the phase.
-15. ``lm``     — first the decode attentions' products (``layers.
+17. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
    shapes, within DECODE_TOL, with the memory a call allocates held below
@@ -219,7 +255,7 @@ copy kernels and the largest copies by shape). ``build`` and
 known launches, early and late in the process). Then the
 script's total seconds (``total``), the ``{"kernels": [...]}`` summary (K1,
 K2, K3, K3b, K4, K5 and K6 with their launches on the main paths, the
-uniform samplers' and the node tasks' runs among K3's, K3b's and K4's; K1w, off
+uniform samplers', the node tasks' and the storage paths' runs among them; K1w, off
 the path, beside them), the card's name and power limit as nvidia-smi reports them,
 and the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failed check exits non-zero before the last line.
@@ -228,6 +264,7 @@ and the last line ``{"ok": true, "device": {"platform": "gpu",
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -316,7 +353,7 @@ LM_B, LM_S, LM_DECODE_STEPS = 4, 4096, 32
 # host-clock reading of mamba2's kernel-path prefill, the first after
 # emptying the allocator's cache, read 0.559 s where the other runs read
 # 0.215-0.224 s (the plain path 0.407-0.428 s; NVIDIA H100 80GB HBM3, 700 W).
-PREFILL_RUNS = 3
+PREFILL_RUNS = 2
 SSD_TOL = 1e-3
 LM_LAYER_TOL = 3e-2
 LM_F32_TOL = 1e-3
@@ -352,6 +389,10 @@ class SmokeError(RuntimeError):
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase's line gains ``at_s``, the
+    script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -884,6 +925,7 @@ def step_parity(torch, pipe, n_steps: int):
              "model_grad_rel": 0.0, "model_grad_name": None,
              "steps_with_model_grads_beyond_1e-4": 0,
              "gru_grads_exactly_zero": pipe.stateful or None}
+    t0 = time.perf_counter()
     # The per-seed form reaches the layer through ``ops``' own name.
     ta.fused_temporal_layer, ta.temporal_attention = layer_spy, attention_spy
     ta.ops.fused_temporal_layer = layer_spy
@@ -945,6 +987,7 @@ def step_parity(torch, pipe, n_steps: int):
         ta.fused_temporal_layer, ta.temporal_attention = layer, attention
         ta.ops.fused_temporal_layer = layer
     torch.cuda.synchronize()
+    worst["seconds"] = time.perf_counter() - t0
     return worst
 
 
@@ -1390,6 +1433,7 @@ def snapshot_step_parity(torch, pipe, xs, loss_and_state, label):
     def tensors(state):
         return state if isinstance(state, tuple) else (state,)
 
+    t0 = time.perf_counter()
     pipe.reset_epoch_state()
     worst = {"loss": 0.0, "model_grad_rel": 0.0, "model_grad_name": None,
              "grad_tolerance_share": 0.0, "state_max_abs_err": 0.0}
@@ -1425,6 +1469,7 @@ def snapshot_step_parity(torch, pipe, xs, loss_and_state, label):
                             else st.detach())
     pipe.mode = "auto"
     torch.cuda.synchronize()
+    worst["seconds"] = time.perf_counter() - t0
     return worst
 
 
@@ -2613,7 +2658,7 @@ def tgat2_phase(torch, data):
 ZOO_PARITY_STEPS = 3
 ZOO_LOSS_RTOL = 1e-5
 # Train steps before, and in, each loop's profiler window (its busy share).
-BUSY_SKIP, BUSY_STEPS = 5, 30
+BUSY_SKIP, BUSY_STEPS = 3, 15
 # Each zoo model at its reference config's defaults (full width) and its
 # sampler: k (TPNet samples no neighbors: its recipe runs at k = 1 over the
 # default host recency spec) and whether it is the device recency sampler.
@@ -2730,8 +2775,6 @@ def train_busy(torch, pipe):
         finally:
             it.close()
     out = device_window(prof, wall_us)
-    if not out["device_events"]:
-        out.update(device_busy_ms=None, device_idle_share=None)
     out["device_busy_share"] = (None if out["device_idle_share"] is None
                                 else 1.0 - out["device_idle_share"])
     out["steps"] = BUSY_STEPS
@@ -3498,6 +3541,11 @@ def disc_hold(want, got, reduce: str, what: str) -> float:
     return rel
 
 
+# Timed runs of Table 5's host paths (their median); numpy's run takes
+# seconds on reddit.
+TABLE5_NUMPY_RUNS, TABLE5_DEVICE_RUNS = 1, 3
+
+
 def table5(torch, graphs):
     """Table 5 (``benchmarks/table5_discretize.py``) on the card:
     ``discretize_device`` against ``discretize`` (numpy) and
@@ -3554,8 +3602,8 @@ def table5(torch, graphs):
             events=data.num_edge_events, classes=dev.num_edge_events,
             edge_feat_dim=data.edge_feat_dim, guard_passed=True, sum_max_rel_diff=rel,
             naive_s=naive_s,
-            numpy_s=host_s(lambda: discretize(data, unit, "count"), 3),
-            device_s=host_s(lambda: discretize_device(data, unit, "count"), 5),
+            numpy_s=host_s(lambda: discretize(data, unit, "count"), TABLE5_NUMPY_RUNS),
+            device_s=host_s(lambda: discretize_device(data, unit, "count"), TABLE5_DEVICE_RUNS),
             device_core_ms=core_ms(data, unit, "count"))
         r.update(speedup_numpy_vs_naive=naive_s / r["numpy_s"],
                  speedup_device_vs_naive=naive_s / r["device_s"],
@@ -3575,8 +3623,8 @@ def table5(torch, graphs):
                     "count", "genre daily")
     out["genre_daily"] = dict(
         events=genre.num_edge_events, sum_max_rel_diff=rel, guard_passed=True,
-        numpy_s=host_s(lambda: discretize(genre, day, "count"), 3),
-        device_s=host_s(lambda: discretize_device(genre, day, "count"), 5),
+        numpy_s=host_s(lambda: discretize(genre, day, "count"), TABLE5_NUMPY_RUNS),
+        device_s=host_s(lambda: discretize_device(genre, day, "count"), TABLE5_DEVICE_RUNS),
         device_core_ms=core_ms(genre, day, "count"))
     return out
 
@@ -3614,6 +3662,664 @@ def node_phase(torch, wiki):
     out["table5_seconds"] = time.perf_counter() - t
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core storage, the online graph service and the profiler hooks
+# ---------------------------------------------------------------------------
+# 2-layer TGAT over the store-built device uniform sampler: train steps held
+# card against CPU; batches of the store-built host uniform sampler held
+# against the in-memory one; store-backed train steps inside trace_capture.
+STORE_STEPS = 3
+STORE_HOST_BATCHES = 10
+TRACE_STEPS = 5
+GAUGES = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit", "num_allocs",
+          "bytes_reserved")
+
+
+def _rss_bytes():
+    """(current, peak) resident set of this process: ``VmRSS`` from
+    ``/proc/self/status`` and ``ru_maxrss`` (KiB on Linux)."""
+    import resource
+
+    cur = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) * 1024
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _shared_node_time(data):
+    """Whether two distinct events share a ``(node, timestamp)`` pair: the
+    condition under which the streaming CSR may order a node's run
+    differently from the in-RAM lexsort (``repro_torch/storage/csr.py``)."""
+    import numpy as np
+
+    e = np.arange(data.num_edge_events, dtype=np.int64)
+    nodes = np.concatenate([data.src, data.dst]).astype(np.int64)
+    times = np.concatenate([data.edge_t, data.edge_t]).astype(np.int64)
+    eids = np.concatenate([e, e])
+    order = np.lexsort((eids, times, nodes))
+    n, t, ev = nodes[order], times[order], eids[order]
+    same = (n[1:] == n[:-1]) & (t[1:] == t[:-1])
+    return bool((same & (ev[1:] != ev[:-1])).any())
+
+
+def _csr_runs_equal(a, b):
+    """Each node's run of ``a`` and ``b`` is the same multiset of (time,
+    neighbor, event) entries, and ``a``'s times ascend within each run."""
+    import numpy as np
+
+    if not np.array_equal(a["indptr"], b["indptr"]):
+        return False
+    node = np.repeat(np.arange(len(a["indptr"]) - 1), np.diff(a["indptr"]))
+
+    def canon(c):
+        o = np.lexsort((c["adj_e"], c["adj_nbr"], c["adj_t"], node))
+        return [np.asarray(c[k])[o] for k in ("adj_t", "adj_nbr", "adj_e")]
+
+    ascending = bool(np.all((np.diff(a["adj_t"]) >= 0) | (np.diff(node) != 0)))
+    return ascending and all(np.array_equal(x, y) for x, y in zip(canon(a), canon(b)))
+
+
+def _train_batches_equal(torch, mem, store):
+    """Every train batch of an epoch off the store bit-equal, key by key, to
+    the in-memory pipeline's, as each pipeline stages it for its step. The
+    batches do not depend on the parameters, so the store's data path (its
+    columns, feature rows and negatives, pages released after each batch)
+    is held exactly, where the epochs' losses are not (K2's float atomics).
+    The sampler's sink row of ``nbr_buf`` is left out, as in
+    ``prefetch_check``. Returns the number of batches."""
+    import numpy as np
+
+    from repro_torch.core import TRAIN_KEY
+
+    n = 0
+    for p in (mem, store):
+        p.reset_epoch_state()
+    with mem.manager.activate(TRAIN_KEY), store.manager.activate(TRAIN_KEY):
+        for x, y in itertools.zip_longest(mem._loader(mem.train_data),
+                                          store._loader(store.train_data)):
+            check(x is not None and y is not None,
+                  f"the store's epoch has another number of train batches ({n} equal)")
+            check(x.keys() == y.keys(), f"train batch {n}: keys differ off the store")
+            for k in x:
+                a, b = x[k], y[k]
+                if k == "nbr_buf":
+                    a, b = a[:-1], b[:-1]
+                if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+                    same = a.device == b.device and torch.equal(a, b)
+                else:
+                    same = type(a) is type(b) and np.array_equal(a, b)
+                check(same, f"train batch {n}: {k!r} off the store differs")
+            n += 1
+    return n
+
+
+def _store_epochs(torch, mem, store, tel, earlier):
+    """One ``train_epoch()`` (and val MRR after it) off the in-memory stream
+    and off the store from the same initial state. ``earlier`` is the train
+    phase's epoch through the kernels, an in-memory epoch from that same
+    state too: where the two in-memory epochs agree to the bit, the store
+    epoch must as well; where they differ (float atomics in K2's table
+    gradients), it is held to the train phase's tolerances. Either way,
+    every train batch of the epoch is held bit-equal first
+    (``_train_batches_equal``). Returns the numbers and which rule held."""
+    check(_trees_equal(torch, mem.params, store.params),
+          "the store-backed pipeline's initial parameters differ")
+    rel0 = tel.counter_value("storage/windows_released")
+    a = run_epoch(torch, mem, None)
+    rss = _rss_bytes()
+    s = run_epoch(torch, store, None)
+    rss_after = _rss_bytes()
+    released = tel.counter_value("storage/windows_released") - rel0
+    n_train = math.ceil(store.train_data.num_edge_events / store.batch_size)
+    n_val = math.ceil(store.val_data.num_edge_events / store.batch_size)
+    for run, label in ((a, "in-memory"), (s, "store")):
+        launched = {k: v for k, v in run["launches"].items() if v}
+        check(launched == {"fused_temporal_layer": n_train,
+                           "fused_temporal_layer_bwd": n_train},
+              f"{label} epoch launched {launched} for {n_train} batches")
+    # the epoch's batches, then the val MRR's warm-up (train) and val pass
+    check(released == 2 * n_train + n_val,
+          f"storage/windows_released {released} for {2 * n_train + n_val} batches")
+    out = dict(in_memory=a, store=s, windows_released=released,
+               train_batches_bit_equal=_train_batches_equal(torch, mem, store),
+               rss_bytes_before_store_epoch=rss[0], rss_bytes_after_store_epoch=rss_after[0],
+               peak_rss_bytes=rss_after[1])
+    b = (earlier["loss"], earlier["val_mrr"])
+    if (a["loss"], a["val_mrr"]) == b:
+        check((s["loss"], s["val_mrr"]) == b,
+              f"two in-memory epochs agree to the bit but the store epoch differs: "
+              f"loss {s['loss']} vs {a['loss']}, val MRR {s['val_mrr']} vs {a['val_mrr']}")
+        out["held"] = "bit-equal, as two in-memory epochs are"
+        return out
+    dl, dm = abs(s["loss"] - a["loss"]), abs(s["val_mrr"] - a["val_mrr"])
+    check(dl <= EPOCH_LOSS_TOL and dm <= TRAIN_MRR_TOL,
+          f"store epoch loss {s['loss']} / val MRR {s['val_mrr']} vs in-memory "
+          f"{a['loss']} / {a['val_mrr']}: beyond {EPOCH_LOSS_TOL} / {TRAIN_MRR_TOL}")
+    out.update(held="within EPOCH_LOSS_TOL and TRAIN_MRR_TOL (in-memory epochs "
+                    "differ run to run)", loss_diff=dl, mrr_diff=dm,
+               in_memory_spread=dict(loss=abs(a["loss"] - b[0]),
+                                     val_mrr=abs(a["val_mrr"] - b[1])))
+    return out
+
+
+def _store_csr(torch, wiki, store, tel):
+    """``streaming_csr`` over the store against the in-RAM ``build`` of both
+    uniform samplers: bit-equal when no two distinct events share a
+    ``(node, time)`` pair, else the same multiset per node with ascending
+    times. Seconds of each build."""
+    import numpy as np
+
+    from repro_torch.core.device_uniform import DeviceUniformSampler
+    from repro_torch.core.sampler import UniformSampler
+    from repro_torch.storage import streaming_csr
+
+    t = time.perf_counter()
+    csr = streaming_csr(store, telemetry=tel)
+    stream_s = time.perf_counter() - t
+    host = UniformSampler(wiki.num_nodes, K20)
+    t = time.perf_counter()
+    host.build(wiki.src, wiki.dst, wiki.edge_t)
+    host_s = time.perf_counter() - t
+    dev = DeviceUniformSampler(wiki.num_nodes, K20, device=DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dev.build(wiki.src, wiki.dst, wiki.edge_t)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    keys = ("adj_nbr", "adj_t", "adj_e", "indptr")
+    got = {k: np.asarray(csr[k]) for k in keys}
+    shared = _shared_node_time(wiki)
+    out = dict(entries=int(len(got["adj_nbr"])), shared_node_time_pairs=shared,
+               streaming_seconds=stream_s, host_build_seconds=host_s,
+               device_build_seconds=dev_s,
+               csr_windows=tel.counter_value("storage/csr_windows"))
+    for label, want in (("host", host.state_dict()), ("device", dev.state_dict())):
+        equal = all(np.array_equal(got[k], want[k]) for k in keys)
+        if shared:
+            check(equal or _csr_runs_equal(got, want),
+                  f"streaming CSR vs the {label} build: a node's run differs")
+            out[label] = "bit-equal" if equal else "same multiset per node, ascending"
+        else:
+            check(equal, f"streaming CSR is not bit-equal to the {label} build")
+            out[label] = "bit-equal"
+    return out
+
+
+def _store_tgat2(torch, wiki, path):
+    """2-layer TGAT over the store-built uniform samplers. Device sampler:
+    ``evaluate("val")`` through K3 (three launches a scored batch) off the
+    store and off the in-memory stream given the store's CSR, the MRRs
+    equal; STORE_STEPS train steps on the card held against the CPU
+    (``card_vs_cpu_steps``), K3 and K3b counted. Host sampler: the CSR equal
+    to the in-RAM build's (given the same CSR where pairs collide) and the
+    first STORE_HOST_BATCHES train batches' ``nbr_*`` / ``nbr2_*`` bit-equal
+    to the in-memory pipeline's."""
+    from repro_torch.core import TRAIN_KEY
+    from repro_torch.kernels.temporal_attention import LAUNCHES, reset_launches
+    from repro_torch.storage import MmapStore
+
+    out = {}
+    t = time.perf_counter()
+    st = uniform_experiment(True).compile(data=MmapStore(path), device=DEVICE)
+    out["setup_seconds"] = time.perf_counter() - t
+    mem = uniform_experiment(True).compile(data=wiki, device=DEVICE)
+    sh = next(h for h in st.manager.hooks() if hasattr(h, "sampler"))
+    mh = next(h for h in mem.manager.hooks() if hasattr(h, "sampler"))
+    mh.load_state_dict(sh.state_dict())  # the same CSR
+    n_val = math.ceil(st.val_data.num_edge_events / st.batch_size)
+    ev, _, _ = eval_run(torch, st, None)
+    ev_mem, _, _ = eval_run(torch, mem, None)
+    for r, label in ((ev, "store"), (ev_mem, "in-memory")):
+        launched = {k: v for k, v in r["launches"].items() if v}
+        check(launched == {"temporal_attention": 3 * n_val},
+              f"2-layer TGAT ({label}) eval launched {launched} for {n_val} batches")
+    check(ev["mrr"] == ev_mem["mrr"],
+          f"2-layer TGAT val MRR off the store {ev['mrr']} vs in-memory {ev_mem['mrr']}")
+    del mem
+    reset_launches()
+    steps = card_vs_cpu_steps(torch, st, STORE_STEPS)
+    launches = dict(LAUNCHES)
+    launched = {k: v for k, v in launches.items() if v}
+    check(launched == {"temporal_attention": 3 * STORE_STEPS,
+                       "temporal_attention_bwd": 3 * STORE_STEPS},
+          f"2-layer TGAT store steps launched {launched}")
+    out.update(eval=ev, eval_in_memory_mrr=ev_mem["mrr"],
+               steps=dict(steps=STORE_STEPS, launches=launches, **steps))
+    del st
+    torch.cuda.empty_cache()
+
+    host = uniform_experiment(False).compile(data=MmapStore(path), device=DEVICE)
+    host_mem = uniform_experiment(False).compile(data=wiki, device=DEVICE)
+    a = next(h for h in host.manager.hooks() if hasattr(h, "sampler"))
+    b = next(h for h in host_mem.manager.hooks() if hasattr(h, "sampler"))
+    b.load_state_dict(a.state_dict())
+    n = 0
+    for p in (host, host_mem):
+        p.reset_epoch_state()
+    with host.manager.activate(TRAIN_KEY), host_mem.manager.activate(TRAIN_KEY):
+        for x, y in zip(host._loader(host.train_data), host_mem._loader(host_mem.train_data)):
+            for f in ("ids", "times", "eids", "mask"):
+                for hop in ("nbr", "nbr2"):
+                    check(torch.equal(x[f"{hop}_{f}"], y[f"{hop}_{f}"]),
+                          f"host uniform batch {n}: {hop}_{f} off the store differs")
+            n += 1
+            if n == STORE_HOST_BATCHES:
+                break
+    out["host_uniform_batches_bit_equal"] = n
+    return out
+
+
+def _trace_store_steps(torch, pipe, logdir):
+    """``trace_capture`` around TRACE_STEPS store-backed train steps (idle
+    margins inside it, so the profiler keeps the device records): the trace
+    file exists and names K1's and K2's device kernels. Then
+    ``device_memory_gauges``: the five gauges of each card, ``bytes_in_use``
+    equal to ``torch.cuda.memory_allocated()``."""
+    import os
+
+    from repro_torch.core import TRAIN_KEY
+    from repro_torch.obs import MemorySink, Telemetry, device_memory_gauges, trace_capture
+
+    sink = MemorySink()
+    tel = Telemetry(sink)
+    pipe.reset_epoch_state()
+    with pipe.manager.activate(TRAIN_KEY):
+        it = iter(pipe._loader(pipe.train_data))
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with trace_capture(logdir, telemetry=tel):
+                time.sleep(PROFILE_MARGIN_S)
+                for _, batch in zip(range(TRACE_STEPS), it):
+                    pipe._train_step(batch)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+            seconds = time.perf_counter() - t
+        finally:
+            it.close()
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    check(len(files) == 1, f"trace_capture wrote {len(files)} files")
+    with open(files[0]) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    k1 = sorted(n for n in names if any(k in n for k in K1_LAUNCHES))
+    k2 = sorted(n for n in names if any(k in n for k in K2_LAUNCHES))
+    check(bool(k1) and bool(k2), f"the trace names no K1 ({k1}) or K2 ({k2}) kernel")
+    spans = [r for r in sink.records if r["kind"] == "span"]
+    check([r["name"] for r in spans] == ["profiler/trace"]
+          and spans[0]["attrs"]["logdir"] == logdir, "trace_capture's span")
+    gauges = device_memory_gauges(tel)
+    allocated = torch.cuda.memory_allocated(0)
+    check(sorted(gauges) == sorted(f"device{i}/{g}" for i in range(torch.cuda.device_count())
+                                   for g in GAUGES), f"device_memory_gauges gave {sorted(gauges)}")
+    check(gauges["device0/bytes_in_use"] == allocated,
+          f"bytes_in_use {gauges['device0/bytes_in_use']} vs memory_allocated {allocated}")
+    return dict(trace_bytes=os.path.getsize(files[0]), seconds_with_margins=seconds,
+                k1_kernels=k1, k2_kernels=k2, gauges=gauges)
+
+
+def storage_phase(torch, wiki, train_run):
+    """Out-of-core storage on the card (``repro_torch.storage``): the store
+    written from full-scale ``wikipedia`` by ``MmapStore.from_data``
+    (timed; bytes on disk; ``is_intact``); the quickstart off the in-memory
+    stream and off ``compile(MmapStore(path))``: ``evaluate("val")`` through
+    K1 (119 launches), MRR and the sampler state after it bit-equal; one
+    ``train_epoch()`` each through K1 and K2 (552 launches each) and val MRR
+    after it (``_store_epochs``, with ``train_run``, the train phase's
+    kernel epoch), the pages released once per batch, the process's RSS; ``streaming_csr`` against the in-RAM builds
+    (``_store_csr``); 2-layer TGAT over the store-built uniform samplers
+    (``_store_tgat2``); the profiler hooks around store-backed train steps
+    (``_trace_store_steps``). The store lives in a temporary directory,
+    removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.obs import MemorySink, Telemetry
+    from repro_torch.storage import MmapStore
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        path = os.path.join(tmp, "wikipedia")
+        t = time.perf_counter()
+        MmapStore.from_data(path, wiki)
+        write_s = time.perf_counter() - t
+        check(MmapStore.is_intact(path), "the written store is not intact")
+        disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        out = dict(store=dict(write_seconds=write_s, bytes_on_disk=disk,
+                              events=wiki.num_edge_events, nodes=wiki.num_nodes,
+                              edge_feat_dim=wiki.edge_feat_dim, intact=True))
+
+        tel = Telemetry(MemorySink())
+        mem = quickstart({"epochs": 1}).compile(data=wiki, device=DEVICE)
+        t = time.perf_counter()
+        store = quickstart({"epochs": 1}).compile(data=MmapStore(path), device=DEVICE,
+                                                  telemetry=tel)
+        out["store"]["compile_seconds"] = time.perf_counter() - t
+        n_val = math.ceil(store.val_data.num_edge_events / store.batch_size)
+        ev_mem, state_mem, _ = eval_run(torch, mem, None)
+        ev, state, _ = eval_run(torch, store, None)
+        launched = {k: v for k, v in ev["launches"].items() if v}
+        check(launched == {"fused_temporal_layer": n_val},
+              f"store eval launched {launched} for {n_val} val batches")
+        check(ev["mrr"] == ev_mem["mrr"],
+              f"val MRR off the store {ev['mrr']} vs in-memory {ev_mem['mrr']}")
+        check(_states_equal(state, state_mem), "sampler state after eval differs")
+        out["eval"] = dict(ev, in_memory_mrr=ev_mem["mrr"], sampler_state_bit_equal=True)
+        out["epoch"] = _store_epochs(torch, mem, store, tel, train_run)
+        del mem
+        out["csr"] = _store_csr(torch, wiki, MmapStore(path), tel)
+        out["tgat2"] = _store_tgat2(torch, wiki, path)
+        out["profiler"] = _trace_store_steps(torch, store, os.path.join(tmp, "trace"))
+        del store
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+SERVE_EVENTS = 20_000
+SERVE_POSITIVES = 1_000     # each with one negative: 2,000 link requests
+SERVE_EMBEDS = 256
+SERVE_SNAPSHOT_AT = 19_000
+SERVE_DUPLICATES = 5
+SERVE_COMPOSITION = 224     # link requests answered again in flushes of 1, 7, 32
+SERVE_TOL = 2e-5
+SERVE_TIMEOUT_S = 120
+SERVE_CPU_TIMEOUT_S = 600
+
+
+def serve_requests(wiki, seed: int = 0):
+    """The request mix: the SERVE_POSITIVES events after the ingested ones
+    as link requests, each followed by one with a negative destination from
+    a seeded numpy draw, then SERVE_EMBEDS embed requests (the positives'
+    sources at their times)."""
+    import numpy as np
+
+    lo, hi = SERVE_EVENTS, SERVE_EVENTS + SERVE_POSITIVES
+    neg = np.random.default_rng(seed).integers(0, wiki.num_nodes, SERVE_POSITIVES)
+    links = []
+    for s, d, t, n in zip(wiki.src[lo:hi], wiki.dst[lo:hi], wiki.edge_t[lo:hi], neg):
+        links += [(int(s), int(d), int(t)), (int(s), int(n), int(t))]
+    embeds = [(int(s), int(t)) for s, t in zip(wiki.src[lo:lo + SERVE_EMBEDS],
+                                               wiki.edge_t[lo:lo + SERVE_EMBEDS])]
+    return links, embeds
+
+
+def serve_cpu(path: str) -> None:
+    """The serve phase's service on the CPU, run in a process of its own
+    beside the card's ingest: the events and requests of ``path`` (an
+    ``.npz`` of ``events`` (E, 4), ``links`` (L, 3), ``embeds`` (M, 2),
+    ``num_nodes``) through ``OnlineGraphService(device="cpu")``; writes
+    ``path + ".out.npz"``: the scores, the embeddings, the sampler's and
+    EdgeBank's state, its ingest events/s and the request seconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import OnlineGraphService
+
+    torch.set_num_threads(1)  # the card's ingest runs beside it on the host
+    inp = np.load(path)
+    events, links, embeds = (inp[k].tolist() for k in ("events", "links", "embeds"))
+    with OnlineGraphService(int(inp["num_nodes"]), k=8, device="cpu") as cpu:
+        rate = _ingest(torch, cpu, events)
+        t = time.perf_counter()
+        res = _answers(cpu, links, embeds)
+        requests_s = time.perf_counter() - t
+        _model_only(cpu, res)
+        state, bank = cpu.sampler.state_dict(), cpu.edgebank.state_dict()
+    np.savez(path + ".out.npz", ingest_events_per_s=rate, requests_seconds=requests_s,
+             scores=np.array([r.score for r in res[:len(links)]]),
+             embeddings=np.stack([r.embedding for r in res[len(links):]]),
+             **{f"sampler_{k}": v for k, v in state.items()},
+             **{f"edgebank_{k}": v for k, v in bank.items()})
+
+
+def _answers(svc, links, embeds):
+    """Submit every request at once; the responses in request order."""
+    pend = [svc.submit_link(*q) for q in links] + [svc.submit_embed(*q) for q in embeds]
+    return [p.result(timeout=SERVE_TIMEOUT_S) for p in pend]
+
+
+def _ingest(torch, svc, events):
+    """Ingest ``events`` and drain; events per second."""
+    t = time.perf_counter()
+    svc.ingest_many(events)
+    svc.drain()
+    if svc.device.type == "cuda":
+        torch.cuda.synchronize()
+    return len(events) / (time.perf_counter() - t)
+
+
+def _model_only(svc, res):
+    """No request of the non-chaos part was answered by anything but the
+    learned tier, and no model call failed (a CUDA fault must not pass as
+    EdgeBank's DEGRADED)."""
+    from repro_torch.serve import Status
+
+    tiers = {(r.status, r.tier) for r in res}
+    check(tiers == {(Status.OK, "model")} and svc.stats["model_errors"] == 0,
+          f"service answers {tiers}, model errors {svc.stats['model_errors']}")
+
+
+def _same_bits(a, b, what):
+    import numpy as np
+
+    for x, y in zip(a, b):
+        same = (x.score == y.score if x.embedding is None
+                else np.array_equal(x.embedding, y.embedding))
+        check(same, f"{what}: an answer differs")
+
+
+def serve_phase(torch, wiki):
+    """The online graph service (``repro_torch.serve``) on the card at the
+    reference's widths (``d_model`` 32, ``time_dim`` 8, ``max_batch`` 32),
+    k = 8 over wikipedia's 9,000 nodes: SERVE_EVENTS events ingested one by
+    one (events/s), then 2,000 link and 256 embed requests under
+    ``torch.profiler`` (the card's idle share over the request window, its
+    busy time per flush); the same on the CPU (``serve_cpu``, in a process
+    of its own on one thread that runs beside the card's ingest, so the
+    card's events/s are read with it running): sampler and EdgeBank
+    state bit-equal, scores within SERVE_TOL, embeddings within SERVE_TOL
+    of their largest entry; every answer from the model tier, no model error;
+    SERVE_COMPOSITION of the link requests answered again in flushes of 1,
+    7 and 32, bit-identical; the card's service snapshotted mid-stream, at
+    SERVE_SNAPSHOT_AT events, restored into a fresh service (which never saw
+    the first one) that replays the rest with SERVE_DUPLICATES duplicates:
+    the same state and the same bits as the uninterrupted service, and both
+    stopped with nothing left in flight; last the chaos run of ``tests/test_serving.py``, every request
+    resolved with an explicit status and the tallies equal to the
+    telemetry counters. Per-tier latency p50 / p99 from the service's
+    ``serve/latency/*`` histograms (and exact, from the responses)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.obs import MemorySink, Telemetry
+
+    t0 = time.perf_counter()
+    n = SERVE_EVENTS
+    events = [(int(s), int(d), int(t), i) for i, (s, d, t) in
+              enumerate(zip(wiki.src[:n], wiki.dst[:n], wiki.edge_t[:n]))]
+    links, embeds = serve_requests(wiki)
+
+    tel = Telemetry(MemorySink())
+    out, parts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        path = os.path.join(tmp, "cpu.npz")
+        np.savez(path, events=np.array(events), links=np.array(links),
+                 embeds=np.array(embeds), num_nodes=wiki.num_nodes)
+        with open(path + ".log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-c",
+                 f"import sys; sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
+                 f"import chip_smoke; chip_smoke.serve_cpu({path!r})"],
+                stdout=log, stderr=subprocess.STDOUT)
+        try:
+            res, state, bank = _serve_card(torch, wiki, events, links, embeds,
+                                           os.path.join(tmp, "snapshot"), tel, out, parts)
+            t = time.perf_counter()
+            rc = proc.wait(timeout=SERVE_CPU_TIMEOUT_S)
+            parts["cpu_wait"] = time.perf_counter() - t
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(path + ".log") as log:
+            check(rc == 0, f"the CPU service failed: {log.read()[-2000:]}")
+        cpu, nl = np.load(path + ".out.npz"), len(links)
+        check(all(np.array_equal(state[k], cpu[f"sampler_{k}"]) for k in state),
+              "sampler state card vs CPU")
+        check(all(np.array_equal(bank[k], cpu[f"edgebank_{k}"]) for k in bank),
+              "EdgeBank state card vs CPU")
+        score_err = float(np.abs(np.array([r.score for r in res[:nl]]) - cpu["scores"]).max())
+        emb_rel = max(float(np.abs(r.embedding - e).max() / np.abs(e).max())
+                      for r, e in zip(res[nl:], cpu["embeddings"]))
+        check(score_err <= SERVE_TOL, f"scores card vs CPU differ by {score_err}")
+        check(emb_rel <= SERVE_TOL, f"embeddings card vs CPU differ by {emb_rel} of the largest")
+        out["cpu_ingest_events_per_s"] = float(cpu["ingest_events_per_s"])
+        parts["cpu_requests"] = float(cpu["requests_seconds"])
+        out["card_vs_cpu"] = dict(score_max_abs_err=score_err,
+                                  embedding_max_err_of_largest=emb_rel,
+                                  sampler_state_bit_equal=True, edgebank_bit_equal=True)
+    t = time.perf_counter()
+    out["chaos"] = serve_chaos(torch)
+    parts["chaos"] = time.perf_counter() - t
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _serve_card(torch, wiki, events, links, embeds, snap_dir, tel, out, parts):
+    """``serve_phase``'s part on the card (the CPU service runs meanwhile in
+    its own process): ingest with a snapshot into ``snap_dir`` mid-stream,
+    the request window under the profiler, flush compositions, the restored
+    service. Returns the card's answers, its sampler's and its EdgeBank's
+    state, for the comparison with the CPU."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import OnlineGraphService
+
+    def service(**kw):
+        return OnlineGraphService(wiki.num_nodes, k=8, device=DEVICE, **kw)
+
+    n = len(events)
+    with service(telemetry=tel) as card:
+        t = time.perf_counter()
+        rate = _ingest(torch, card, events[:SERVE_SNAPSHOT_AT])
+        parts["snapshot"] = -time.perf_counter()
+        card.snapshot(snap_dir, step=SERVE_SNAPSHOT_AT)
+        parts["snapshot"] += time.perf_counter()
+        rate2 = _ingest(torch, card, events[SERVE_SNAPSHOT_AT:])
+        parts["card_ingest"] = time.perf_counter() - t - parts["snapshot"]
+        out["ingest_events_per_s"] = n / parts["card_ingest"]
+        out["ingest_events_per_s_by_part"] = [rate, rate2]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            t = time.perf_counter()
+            res = _answers(card, links, embeds)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t)
+            time.sleep(PROFILE_MARGIN_S)
+        _model_only(card, res)
+        flushes = tel.counter_value("serve/flushes")
+        t = time.perf_counter()
+        window = device_window(prof, wall_us)
+        parts["profiler_read"] = time.perf_counter() - t
+        out["requests"] = dict(
+            links=len(links), embeds=len(embeds), flushes=flushes, **window,
+            device_ms_per_flush=(window["device_busy_ms"] / flushes
+                                 if window["device_events"] else None),
+            latency_hist_s={tier: {"p50": h.quantile(0.5), "p99": h.quantile(0.99),
+                                   "count": h.count}
+                            for tier in ("model", "edgebank", "model_call")
+                            for h in [tel.histogram(f"serve/latency/{tier}")] if h},
+            latency_exact_s={"p50": float(np.percentile([r.latency_s for r in res], 50)),
+                             "p99": float(np.percentile([r.latency_s for r in res], 99))})
+
+        state, bank = card.sampler.state_dict(), card.edgebank.state_dict()
+
+        sizes = {}
+        t = time.perf_counter()
+        for size in (1, 7, 32):
+            f0 = tel.counter_value("serve/flushes")
+            got = []
+            for lo in range(0, SERVE_COMPOSITION, size):
+                got += _answers(card, links[lo:min(lo + size, SERVE_COMPOSITION)], [])
+            _same_bits(got, res[:SERVE_COMPOSITION], f"flushes of {size}")
+            sizes[size] = tel.counter_value("serve/flushes") - f0
+        parts["flush_composition"] = time.perf_counter() - t
+        out["flush_composition"] = dict(requests=SERVE_COMPOSITION, flushes=sizes,
+                                        bit_identical=True)
+        _model_only(card, res)
+
+        t = time.perf_counter()
+        with service() as revived:
+            check(revived.restore(snap_dir) == SERVE_SNAPSHOT_AT, "restored step")
+            _ingest(torch, revived, events[SERVE_SNAPSHOT_AT - SERVE_DUPLICATES:])
+            check(revived.stats["events_deduped"] == SERVE_DUPLICATES,
+                  f"replay deduped {revived.stats['events_deduped']} events")
+            a, b = revived.sampler.state_dict(), card.sampler.state_dict()
+            check(all(np.array_equal(a[k], b[k]) for k in a), "restored sampler state")
+            a, b = revived.edgebank.state_dict(), card.edgebank.state_dict()
+            check(all(np.array_equal(a[k], b[k]) for k in a), "restored EdgeBank state")
+            again = _answers(revived, links, embeds)
+            _model_only(revived, again)
+            _same_bits(again, res, "restored service")
+        parts["restore_replay_answer"] = time.perf_counter() - t
+        out["snapshot_restore"] = dict(at=SERVE_SNAPSHOT_AT, duplicates=SERVE_DUPLICATES,
+                                       bit_identical=True)
+    return res, state, bank
+
+
+def serve_chaos(torch):
+    """``tests/test_serving.py``'s chaos run on the card: slow and failing
+    model steps, a dropped / duplicated / reordered stream; every request
+    resolved with an explicit status, over-deadline requests shed, EdgeBank
+    answering while the model tier is down, and the tallies equal to the
+    telemetry counters."""
+    import numpy as np
+
+    from repro_torch.obs import MemorySink, Telemetry, validate
+    from repro_torch.serve import FaultInjector, OnlineGraphService, Status
+
+    inj = FaultInjector(seed=0, drop_p=0.05, dup_p=0.05, reorder_p=0.15,
+                        reorder_span=3, slow_p=0.5, slow_s=0.02, fail_p=0.6)
+    sink = MemorySink()
+    tel = Telemetry(sink)
+    rng = np.random.default_rng(1)
+    stream = [(int(rng.integers(60)), int(rng.integers(60)), 100 + i, i) for i in range(150)]
+    with OnlineGraphService(60, k=4, flush_interval=0.002, fault_injector=inj,
+                            fail_threshold=2, probe_every=3, latency_budget=0.05,
+                            telemetry=tel, device=DEVICE) as svc:
+        svc.ingest_many(inj.perturb_events(stream))
+        svc.drain()
+        pend = [svc.submit_link(i % 60, (i * 7 + 1) % 60, 1000, timeout=5.0)
+                for i in range(30)]
+        pend += [svc.submit_link(1, 2, 1000, timeout=0.0) for _ in range(3)]
+        results = [p.result(timeout=30) for p in pend]
+        statuses = {r.status for r in results}
+        check(Status.REJECTED in statuses and Status.DEGRADED in statuses
+              and inj.stats["model_faults"] > 0, f"chaos statuses {statuses}")
+        tallies = {s: svc.stats[s] for s in ("ok", "degraded", "rejected", "failed")}
+        check(sum(tallies.values()) == len(results), f"chaos tallies {tallies}")
+        counters = {s: tel.counter_value(f"serve/requests_{s}") for s in tallies}
+        check(counters == tallies, f"chaos counters {counters} vs tallies {tallies}")
+        check(tel.counter_value("serve/model_errors") == svc.stats["model_errors"]
+              and tel.counter_value("serve/events_deduped") == svc.stats["events_deduped"],
+              "chaos: telemetry counters differ from the service's stats")
+    tel.flush()
+    for rec in sink.records:
+        validate(rec)
+    return dict(tallies=tallies, injected=dict(inj.stats), counters_equal=True)
 
 
 def dtdg_profile_phase(torch, data, n_steps: int = 100, n_window: int = 30):
@@ -3936,30 +4642,32 @@ def trace_phase(torch, pipe, n_batches: int = 30, train: bool = False):
 def device_window(prof, wall_us):
     """Device busy time (the union of the device events' intervals), idle
     share (one minus busy over the window's host-clock time ``wall_us``) and
-    device time by kernel name, largest first, of a ``torch.profiler`` run."""
-    from torch.autograd import DeviceType
-
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy, end = 0.0, -math.inf
-    for a, b in spans:
+    device time by kernel name, largest first, of a ``torch.profiler`` run
+    (busy time and idle share ``None`` where it kept no device event: not
+    measured).
+    Read from the profiler's raw kineto events (device records, in ns):
+    building ``prof.events()`` over a window of thousands of launches takes
+    tens of seconds."""
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type().name == "CUDA")
+    busy, end, by_name = 0, -math.inf, {}
+    for a, b, name in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    by_name = {}
-    for e in dev:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        by_name[name] = by_name.get(name, 0) + b - a
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     layer = {label: sum(v for k, v in by_name.items()
                         if any(n in k for n in launches))
              for label, launches in (("K1", K1_LAUNCHES), ("K2", K2_LAUNCHES),
                                      ("K3", ("ta_fwd_kernel",)),
                                      ("K3b", ("ta_bwd_kernel",)))}
-    return {"device_events": len(dev),
-            "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "device_ms_by_name": {k: v / 1e3 for k, v in top},
-            "kernel_device_ms": {k: v / 1e3 for k, v in layer.items()},
+    return {"device_events": len(spans),
+            "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e6 if spans else None,
+            "device_idle_share": 1.0 - busy / 1e3 / wall_us if spans else None,
+            "device_ms_by_name": {k: v / 1e6 for k, v in top},
+            "kernel_device_ms": {k: v / 1e6 for k, v in layer.items()},
             "kernel_busy_share": {k: v / busy if busy else None
                                   for k, v in layer.items()}}
 
@@ -4888,6 +5596,16 @@ def main() -> int:
             "model_grad_floor": GRAD_FLOOR, "discretize_sum_rtol": DISC_SUM_RTOL},
             "nvidia_smi": nvidia_smi_line(), **nd})
         torch.cuda.empty_cache()
+        so = storage_phase(torch, wiki, tr["kernels"])
+        emit({"phase": "storage", "tolerance": {
+            "eval_mrr": "bit-equal", "epoch_loss": EPOCH_LOSS_TOL, "epoch_val_mrr": TRAIN_MRR_TOL,
+            "card_vs_cpu_loss_rel": ZOO_LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+            "grad_floor": GRAD_FLOOR}, "nvidia_smi": nvidia_smi_line(), **so})
+        sv = serve_phase(torch, wiki)
+        emit({"phase": "serve", "tolerance": {"score_abs": SERVE_TOL,
+                                              "embedding_of_largest": SERVE_TOL},
+              "nvidia_smi": nvidia_smi_line(), **sv})
+        torch.cuda.empty_cache()
 
         clock = [profiler_clock(torch), profiler_clock(torch, PROFILE_MARGIN_S)]
         lmk, lmk_cases = lm_kernels_phase(torch)
@@ -4948,7 +5666,10 @@ def main() -> int:
              **{f"uniform_{label}_{part}": zo["uniform"][label][key]
                 for label in ("host", "device")
                 for part, key in (("eval", "eval"), ("train", "kernels"))},
-             "node_tgn_eval": nd["tgn"]["eval"], "node_tgn_train": nd["tgn"]["kernels"]}
+             "node_tgn_eval": nd["tgn"]["eval"], "node_tgn_train": nd["tgn"]["kernels"],
+             "storage_eval": so["eval"], "storage_train": so["epoch"]["store"],
+             "storage_tgat2_eval": so["tgat2"]["eval"],
+             "storage_tgat2_steps": so["tgat2"]["steps"]}
     node_k = nd["kernels"]
     node_seg = {f"node_{name}_{part}": nd[name][key]["launches"]["segment_sum"]
                 for name, _ in NODE_SNAPSHOT_MODELS

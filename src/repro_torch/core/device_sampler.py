@@ -193,12 +193,22 @@ class DeviceRecencySampler:
                                         directed=self.directed)
         self.state = _insert_stream(self.state, nodes, ok, vals, k=self.k)
 
-    def sample(self, seeds) -> NeighborBlock:
+    def sample(self, seeds, query_t=None) -> NeighborBlock:
         """Gather each seed's (up to) K most recent neighbors on the device,
-        most-recent-first, padded with -1 ids / 0 times."""
+        most-recent-first, padded with -1 ids / 0 times. ``query_t`` (B,)
+        optionally masks neighbors newer than each seed's query time (the
+        online service's guard: ids and eids -1, times 0, mask False
+        there), as the reference's does."""
         seeds = as_int32(seeds, "seeds", self.device)
         rows, cc = _gather_rows(self.state, seeds, k=self.k)
-        return NeighborBlock(*_finish_sample(rows, cc, k=self.k))
+        ids, times, eids, mask = _finish_sample(rows, cc, k=self.k)
+        if query_t is not None:
+            qt = as_int32(query_t, "query_t", self.device)[:, None]
+            mask = mask & (times <= qt)
+            ids = torch.where(mask, ids, -1)
+            times = torch.where(mask, times, 0)
+            eids = torch.where(mask, eids, -1)
+        return NeighborBlock(ids, times, eids, mask)
 
     # -- checkpoint contract (shared with the reference samplers) ---------
     def state_dict(self) -> dict:

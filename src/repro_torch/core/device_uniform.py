@@ -29,9 +29,12 @@ Where it differs from the reference's device twin
 
 The ``state_dict`` contract (``adj_nbr/adj_t/adj_e/indptr/counter``, host
 int64) is the host sampler's, so either sampler loads the other's state.
-Neighbor tensors come back int32 (bool mask) on the sampler's device. The
-mesh-sharded form waits for the multi-GPU slice (ROADMAP A5) and the
-store-built form for the storage slice (A4).
+Neighbor tensors come back int32 (bool mask) on the sampler's device.
+``build_from_store`` places the streaming CSR of an ``EventStore``
+(``repro_torch.storage.streaming_csr``) as it is, int64 key included, so it
+takes every graph ``build`` takes (the reference's refuses one whose key
+passes int32). The mesh-sharded form waits for the multi-GPU slice
+(ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -107,11 +110,30 @@ class DeviceUniformSampler:
         nodes, nbrs, times, es = doubled_edges(src, dst, t, eids)
         self._install(nodes, nbrs, times, es)
 
-    def build_from_store(self, store, **kwargs) -> None:
-        """Not ported: event stores come with the storage slice."""
-        raise NotImplementedError(
-            "building a uniform sampler from an EventStore waits for the "
-            "port's storage slice (ROADMAP A4); use build(src, dst, t, eids)")
+    def build_from_store(self, store, chunk_size: int = 1 << 20,
+                         scratch_dir: Optional[str] = None) -> None:
+        """Build the device CSR from an ``EventStore`` by the streaming
+        two-pass build (``repro_torch.storage.streaming_csr``: O(chunk) host
+        memory beyond the adjacency, which ``scratch_dir`` parks in
+        disk-backed memmaps). The host arrays are already sorted, so they
+        are placed on the device without the device sort; ids, times and
+        edge ids are narrowed to int32 with the range check of ``build``,
+        the composite key stays int64. Same layout as ``build`` whenever no
+        two distinct events share a ``(node, timestamp)`` pair
+        (``repro_torch/storage/csr.py``)."""
+        from repro_torch.storage.csr import streaming_csr
+
+        csr = streaming_csr(store, num_nodes=self.num_nodes,
+                            chunk_size=chunk_size, scratch_dir=scratch_dir)
+        dev = self.device
+        i64 = lambda a: torch.tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
+        self._adj = {
+            "adj_nbr": as_int32(csr["adj_nbr"], "adj_nbr", dev),
+            "adj_t": as_int32(csr["adj_t"], "adj_t", dev),
+            "adj_e": as_int32(csr["adj_e"], "adj_e", dev),
+            "adj_key": i64(csr["adj_key"]), "indptr": i64(csr["indptr"]),
+            "tvals": i64(csr["tvals"]), "base": int(csr["base"]),
+        }
 
     def _install(self, nodes, nbrs, times, es) -> None:
         dev = self.device

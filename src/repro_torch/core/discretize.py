@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core.granularity import TimeDelta
 from repro_torch.core.graph import DGData
-from repro_torch.device import resolve_device
+from repro_torch.device import host_tensor, resolve_device
 
 _REDUCTIONS = ("first", "last", "sum", "mean", "max", "count")
 
@@ -308,7 +308,7 @@ def discretize_device(data: DGData, new_gran: TimeDelta, reduce: str = "first",
     n = max(int(data.num_nodes), 1)
 
     def put(a, dtype=None):
-        return torch.as_tensor(np.asarray(a, dtype=dtype)).to(dev)
+        return host_tensor(np.asarray(a, dtype=dtype)).to(dev)
 
     feat_dim = data.edge_feat_dim
     feats_in = (torch.zeros((e, 0), dtype=torch.float32, device=dev)

@@ -9,14 +9,15 @@ Root storage lives in host numpy; batches are moved to the device by the
 hook pipeline (``DeviceTransferHook``). Host numpy copy of
 ``repro.core.graph`` (bit-equal), with discretization delegating to
 ``core.discretize`` and the DTDG ``SnapshotTensor`` view, whose tensors
-``core.loader.snapshot_tensor`` builds on the device. The CSV adapter and
-the out-of-core store adapters are not part of the port yet.
+``core.loader.snapshot_tensor`` builds on the device. ``DGData.from_csv``
+parses in chunks (``iter_csv_chunks``); ``DGData.from_store`` views an
+``repro_torch.storage.EventStore`` without copying its columns.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +32,61 @@ def _as_f32(x) -> Optional[np.ndarray]:
     if x is None:
         return None
     return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+
+
+def _int64_col(strings: np.ndarray) -> np.ndarray:
+    """Parse a string column to int64 exactly; float-formatted cells
+    ("3.0") fall back through float64 (truncating like the old
+    ``genfromtxt`` path did)."""
+    try:
+        return strings.astype(np.int64)
+    except ValueError:
+        return strings.astype(np.float64).astype(np.int64)
+
+
+def iter_csv_chunks(
+    path: str,
+    src_col: int = 0,
+    dst_col: int = 1,
+    t_col: int = 2,
+    feat_cols: Optional[Sequence[int]] = None,
+    delimiter: str = ",",
+    skip_header: int = 1,
+    chunk_rows: int = 1 << 16,
+):
+    """Stream a CSV of events as ``{"src", "dst", "t"[, "edge_feats"]}``
+    numpy chunks of at most ``chunk_rows`` rows.
+
+    Only one chunk is resident at a time: this is the parser behind both
+    the chunked ``DGData.from_csv`` and the out-of-core
+    ``repro_torch.storage.MmapStore.from_csv`` converter. Integer id/time
+    columns parse straight to int64 (no float64 round-trip), features to
+    float32. Blank lines are skipped.
+    """
+    if chunk_rows <= 0:
+        raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    fcols = list(feat_cols) if feat_cols else None
+    with open(path) as f:
+        for _ in range(skip_header):
+            f.readline()
+        while True:
+            lines = []
+            for line in f:
+                if line.strip():
+                    lines.append(line)
+                if len(lines) >= chunk_rows:
+                    break
+            if not lines:
+                return
+            cells = np.array([ln.strip().split(delimiter) for ln in lines])
+            chunk = {
+                "src": _int64_col(cells[:, src_col]),
+                "dst": _int64_col(cells[:, dst_col]),
+                "t": _int64_col(cells[:, t_col]),
+            }
+            if fcols:
+                chunk["edge_feats"] = cells[:, fcols].astype(np.float32)
+            yield chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +173,80 @@ class DGData:
             granularity=TimeDelta.coerce(granularity),
             num_nodes=num_nodes,
         )
+
+    @classmethod
+    def from_csv(
+        cls,
+        path: str,
+        src_col: int = 0,
+        dst_col: int = 1,
+        t_col: int = 2,
+        feat_cols: Optional[Sequence[int]] = None,
+        delimiter: str = ",",
+        skip_header: int = 1,
+        granularity: TimeDelta | str = "s",
+        chunk_rows: int = 1 << 16,
+    ) -> "DGData":
+        """CSV IO adapter (paper §4: custom adapters via CSV).
+
+        The parse streams in ``chunk_rows``-line chunks
+        (``iter_csv_chunks``): id/time columns are parsed straight to
+        int64 (event ids stay int64 end-to-end until device staging — no
+        float round-trip that could silently lose precision on huge
+        streams) and features to float32, so peak parse memory is one
+        chunk plus the final columns instead of the whole file's float64
+        matrix. For streams that should never be fully resident, convert
+        to a store instead: ``repro_torch.storage.MmapStore.from_csv``.
+        """
+        parts = {"src": [], "dst": [], "t": [], "edge_feats": []}
+        for chunk in iter_csv_chunks(
+            path, src_col=src_col, dst_col=dst_col, t_col=t_col,
+            feat_cols=feat_cols, delimiter=delimiter,
+            skip_header=skip_header, chunk_rows=chunk_rows,
+        ):
+            for k in ("src", "dst", "t"):
+                parts[k].append(chunk[k])
+            if "edge_feats" in chunk:
+                parts["edge_feats"].append(chunk["edge_feats"])
+        cat = lambda k, d: (
+            np.concatenate(parts[k]) if parts[k] else np.empty((0,), d))
+        feats = np.concatenate(parts["edge_feats"]) if parts["edge_feats"] else None
+        return cls.from_arrays(
+            cat("src", np.int64), cat("dst", np.int64), cat("t", np.int64),
+            edge_feats=feats, granularity=granularity,
+        )
+
+    @classmethod
+    def from_store(cls, store) -> "DGData":
+        """Zero-copy ``DGData`` view over an ``EventStore`` backend.
+
+        Columns are aliased, not copied: for ``InMemoryStore`` they are
+        the same host arrays ``from_arrays`` would produce (bit-identical
+        pipelines); for ``MmapStore`` they are read-only ``np.memmap``
+        views, so slicing/splitting/loading downstream reads O(touched
+        pages) from disk — the whole training stack runs off a store
+        handle without ever materializing the stream (``docs/storage.md``).
+        The store guarantees time-sorted columns, so no re-sort happens.
+        """
+        return cls(
+            src=store.src,
+            dst=store.dst,
+            edge_t=store.edge_t,
+            edge_feats=store.edge_feats,
+            node_ids=store.node_ids,
+            node_t=store.node_t,
+            node_feats=store.node_feats,
+            static_node_feats=store.static_node_feats,
+            granularity=store.granularity,
+            num_nodes=int(store.num_nodes),
+        )
+
+    def to_store(self):
+        """This storage as an ``InMemoryStore`` (columns aliased, not
+        copied) — the inverse of ``from_store`` for the default backend."""
+        from repro_torch.storage import InMemoryStore
+
+        return InMemoryStore.from_data(self)
 
     # ------------------------------------------------------------------
     # Basic properties

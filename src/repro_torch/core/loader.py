@@ -58,17 +58,24 @@ class DGDataLoader:
         drop_last: bool = False,
         emit_empty: bool = False,
         window_ticks: int = 1,
+        on_batch=None,
     ):
         """Iterate ``dg``.
 
         Exactly one of ``batch_size`` (iterate-by-events) or ``batch_unit``
         (iterate-by-time) must be set. ``window_ticks`` scales the time
         window (e.g. unit='h', window_ticks=6 -> 6-hour snapshots).
+        ``on_batch`` (no-arg callable) runs after each batch has been
+        hook-processed and handed off: the storage layer passes
+        ``MmapStore.release`` here so an epoch over a memory-mapped stream
+        keeps O(window) resident pages; hooks and staging copy everything
+        they keep, so dropped pages are safe.
         """
         if (batch_size is None) == (batch_unit is None):
             raise ValueError("set exactly one of batch_size / batch_unit")
         self.dg = dg
         self.manager = hook_manager
+        self.on_batch = on_batch
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.emit_empty = emit_empty
@@ -116,6 +123,8 @@ class DGDataLoader:
                 break
             batch = self._materialize(start, stop)
             yield self._run_hooks(batch)
+            if self.on_batch is not None:
+                self.on_batch()
 
     # -- DTDG: fixed time window ------------------------------------------
     def _iter_time(self) -> Iterator[Batch]:
@@ -127,6 +136,8 @@ class DGDataLoader:
             if hi > lo or self.emit_empty:
                 batch = self._materialize(lo, hi, window=(t, t_next))
                 yield self._run_hooks(batch)
+                if self.on_batch is not None:
+                    self.on_batch()
             t = t_next
 
     # ------------------------------------------------------------------

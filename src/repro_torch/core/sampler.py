@@ -217,8 +217,8 @@ class UniformSampler:
     with t < query_t comes from one global binary search on a composite
     ``(node, time rank)`` key, and K draws are taken uniformly from it (with
     replacement). Draws use ``default_rng((seed, counter))`` per call, so
-    epochs replay exactly after ``reset_state``. The store-built form
-    (``build_from_store``) waits for the storage slice (ROADMAP A4).
+    epochs replay exactly after ``reset_state``. ``build_from_store`` builds
+    the same adjacency from an ``EventStore`` by the streaming two-pass CSR.
     """
 
     def __init__(self, num_nodes: int, k: int, seed: int = 0,
@@ -236,11 +236,21 @@ class UniformSampler:
         order = np.lexsort((times, nodes))  # by node, then time
         self._set_adjacency(nodes[order], nbrs[order], times[order], es[order])
 
-    def build_from_store(self, store, **kwargs) -> None:
-        """Not ported: event stores come with the storage slice."""
-        raise NotImplementedError(
-            "building a uniform sampler from an EventStore waits for the "
-            "port's storage slice (ROADMAP A4); use build(src, dst, t, eids)")
+    def build_from_store(self, store, chunk_size: int = 1 << 20,
+                         scratch_dir: Optional[str] = None) -> None:
+        """Build the adjacency from an ``EventStore`` without materializing
+        the doubled edge list: ``repro_torch.storage.streaming_csr`` (degree
+        count, then chunked fill at per-node cursors) walks the stream in
+        O(chunk)-resident windows; ``scratch_dir`` parks the O(E) adjacency
+        arrays on disk. Same layout as ``build`` (bit-identical whenever no
+        two distinct events share a ``(node, timestamp)`` pair; see
+        ``repro_torch/storage/csr.py``)."""
+        from repro_torch.storage.csr import streaming_csr
+
+        csr = streaming_csr(store, num_nodes=self.num_nodes,
+                            chunk_size=chunk_size, scratch_dir=scratch_dir,
+                            with_keys=False)
+        self._set_adjacency(*csr_from_state(csr, self.num_nodes))
 
     def _set_adjacency(self, nodes, nbrs, times, es) -> None:
         """Install a node-major, time-ascending adjacency and derive the

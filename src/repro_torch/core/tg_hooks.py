@@ -26,7 +26,7 @@ from repro_torch.core.device_uniform import DeviceUniformSampler
 from repro_torch.core.hooks import Hook
 from repro_torch.core.negatives import NegativeEdgeSampler, snapshot_negatives
 from repro_torch.core.sampler import RecencySampler, UniformSampler
-from repro_torch.device import resolve_device
+from repro_torch.device import host_tensor, resolve_device
 
 _EDGE_TABLE_CACHE: OrderedDict = OrderedDict()
 _EDGE_TABLE_CACHE_MAX = 8
@@ -45,7 +45,8 @@ def _host(x) -> np.ndarray:
 def device_edge_table(feats, device) -> torch.Tensor:
     """Device-resident float32 copy of an edge-feature storage array, cached
     by storage identity and device (epoch resets rebuild nothing; the entry
-    pins the source array so its ``id`` cannot be recycled)."""
+    pins the source array so its ``id`` cannot be recycled). A read-only
+    memmap column is copied, not aliased (``device.host_tensor``)."""
     if isinstance(feats, torch.Tensor):
         return feats.to(device=device, dtype=torch.float32)
     dev = torch.device(device)
@@ -54,7 +55,7 @@ def device_edge_table(feats, device) -> torch.Tensor:
     if entry is not None and entry[0] is feats:
         _EDGE_TABLE_CACHE.move_to_end(key)
         return entry[1]
-    table = torch.as_tensor(np.asarray(feats, np.float32), device=dev)
+    table = host_tensor(np.asarray(feats, np.float32)).to(dev)
     _EDGE_TABLE_CACHE[key] = (feats, table)
     while len(_EDGE_TABLE_CACHE) > _EDGE_TABLE_CACHE_MAX:
         _EDGE_TABLE_CACHE.popitem(last=False)
@@ -126,7 +127,7 @@ def _like(ref, x: np.ndarray):
         return x
     if x.dtype == np.int64:
         x = x.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(ref.device)
+    return host_tensor(x).to(ref.device)
 
 
 def _produces(num_hops: int) -> set:
@@ -357,6 +358,14 @@ class UniformNeighborHook(Hook):
         self.sampler.build(src, dst, t, eids)
         return self
 
+    def build_from_store(self, store, **kwargs) -> "UniformNeighborHook":
+        """Build the adjacency from an ``EventStore`` by the streaming
+        two-pass CSR (``repro_torch.storage.streaming_csr``); returns self.
+        Works for the host and the device hook (each sampler implements
+        ``build_from_store``)."""
+        self.sampler.build_from_store(store, **kwargs)
+        return self
+
     def reset_state(self) -> None:
         """Rewind the sampler's draw counter (epochs replay exactly)."""
         self.sampler.reset_state()
@@ -550,8 +559,9 @@ class PadBatchHook(Hook):
 
 def stage_batch(batch: Batch, device, pool=None) -> Batch:
     """Move every host numpy attribute of ``batch`` to ``device`` (int64
-    narrowed to int32, as the reference stages for its jitted models);
-    tensors already on the device pass through. ``pool`` (a
+    narrowed to int32, as the reference stages for its jitted models;
+    read-only memmap slices copied, ``device.host_tensor``); tensors already
+    on the device pass through. ``pool`` (a
     ``core.loader._HostStagingPool``) routes each array through a reused
     pinned buffer and copies it with ``non_blocking=True``; the caller
     records the event that the slot's next rewrite waits for."""
@@ -563,7 +573,7 @@ def stage_batch(batch: Batch, device, pool=None) -> Batch:
                 continue
             if v.dtype == np.int64:
                 v = v.astype(np.int32)
-            batch[key] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            batch[key] = host_tensor(v).to(device)
     return batch
 
 

@@ -24,3 +24,17 @@ def resolve_device(device="cuda") -> torch.device:
         if dev.index is None:  # pin "cuda" to the current card
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host numpy array as a CPU tensor that owns writable memory.
+
+    A read-only array (a read-only ``np.memmap`` column of a
+    ``storage.MmapStore``, or a slice of one) is copied first: an aliasing
+    tensor would keep reading a file mapping whose pages ``release()``
+    drops, and ``torch.from_numpy`` warns on it. Writable arrays are shared,
+    as ``torch.from_numpy`` shares them."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())

@@ -1,10 +1,11 @@
 """Temporal-graph models of the port: TGAT, TGN, GraphMixer, DyGFormer,
-TPNet, the snapshot (DTDG) models and the persistent forecast, with the
-shared pieces in ``common``."""
+TPNet, the snapshot (DTDG) models, the persistent forecast and the
+EdgeBank baseline, with the shared pieces in ``common``."""
 
 from repro_torch.models.tg import (
     common,
     dygformer,
+    edgebank,
     graphmixer,
     persistent,
     snapshot,
@@ -13,5 +14,5 @@ from repro_torch.models.tg import (
     tpnet,
 )
 
-__all__ = ["common", "dygformer", "graphmixer", "persistent", "snapshot",
-           "tgat", "tgn", "tpnet"]
+__all__ = ["common", "dygformer", "edgebank", "graphmixer", "persistent",
+           "snapshot", "tgat", "tgn", "tpnet"]

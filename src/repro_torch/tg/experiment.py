@@ -17,9 +17,11 @@ every quadrant on ``device`` (``"cuda"`` by default), with
                                       ``pf``/``tgn`` (event windows)
   =========  =======================  ========================================
 
-``run`` compiles, trains through ``TrainLoop`` and evaluates. Out-of-core
-storage and data sharding raise ``NotImplementedError`` until their slices
-land.
+``run`` compiles, trains through ``TrainLoop`` and evaluates. An
+``EventStore`` passed as ``data``, or the ``MmapStore`` at
+``DataSpec.storage``, backs the stream with the store's columns
+(``DGData.from_store``) and runs the event pipelines out-of-core. Data
+sharding raises ``NotImplementedError`` until the multi-GPU slice lands.
 """
 
 from __future__ import annotations
@@ -100,16 +102,21 @@ class Experiment:
         """Assemble the pipeline this experiment describes on ``device``.
 
         ``data`` overrides ``DataSpec``'s generated stream with a pre-built
-        ``DGData``; ``telemetry`` overrides the ``TrainSpec.telemetry``
-        writer. See the module table for the pipeline each task and
-        discretization axis gives.
+        ``DGData``, or with an ``EventStore``, which (like
+        ``DataSpec.storage``) backs the stream with the store's columns and
+        runs the event pipeline out-of-core (``store=`` of
+        ``CTDGLinkPipeline``); ``telemetry`` overrides the
+        ``TrainSpec.telemetry`` writer. See the module table for the
+        pipeline each task and discretization axis gives.
         """
         resolve_device(device)
         d, m, t = self.data, self.model, self.train
-        if d.storage is not None or t.data_shards > 1:
+        if t.data_shards > 1:
             raise NotImplementedError(
-                "out-of-core storage and data sharding are later slices of "
-                "the port (ROADMAP A)")
+                "data sharding is a later slice of the port (ROADMAP A5)")
+        store = self._store(data)
+        if store is not None:
+            data = store.to_data()
         if self.task == "node":
             return self._compile_node(data, device, telemetry)
         names = CTDG_LINK_MODELS if d.discretization is None else DTDG_MODELS
@@ -141,11 +148,28 @@ class Experiment:
             eval_negatives=t.eval_negatives, seed=t.seed,
             model_kwargs=dict(m.kwargs), sampler_spec=self.sampler,
             val_ratio=d.val_ratio, test_ratio=d.test_ratio,
-            telemetry=tel, device=device,
+            store=store, telemetry=tel, device=device,
         )
 
+    def _store(self, data=None):
+        """The out-of-core ``EventStore`` handle, if this experiment has
+        one: an ``EventStore`` passed as ``data``, else the ``MmapStore`` at
+        ``DataSpec.storage`` (``None`` otherwise)."""
+        from repro_torch.storage import EventStore, MmapStore
+
+        if isinstance(data, EventStore):
+            return data
+        if data is None and self.data.storage is not None:
+            return MmapStore(self.data.storage)
+        return None
+
     def _dataset(self, data=None):
-        """The given ``DGData``, else ``DataSpec``'s generated stream."""
+        """The concrete ``DGData``: the given one (an ``EventStore`` is
+        viewed through ``DGData.from_store``), else the ``MmapStore`` at
+        ``DataSpec.storage``, else ``DataSpec``'s generated stream."""
+        store = self._store(data)
+        if store is not None:
+            return store.to_data()
         if data is not None:
             return data
         from repro_torch.data import generate

@@ -11,9 +11,9 @@ one experiment blob reads in both packages:
   ``ModelSpec``   — *what model*: a zoo name plus its config kwargs.
   ``TrainSpec``   — *how to train*: optimizer, epochs, cadences.
 
-Fields the port does not carry yet (storage, sharding) keep their place so
-blobs round-trip; ``tg.Experiment.compile`` raises ``NotImplementedError``
-when one is set.
+Fields the port does not carry yet (the mesh and data sharding) keep their
+place so blobs round-trip; ``tg.Experiment.compile`` raises
+``NotImplementedError`` when one is set.
 """
 
 from __future__ import annotations
@@ -70,8 +70,13 @@ class DataSpec(_SpecBase):
     (``None`` keeps the event stream; a ``TimeDelta`` or unit string like
     ``"h"`` asks for snapshots, with ``capacity`` their row count).
     ``val_ratio``/``test_ratio`` are the ``DGData.split`` boundaries.
-    ``storage`` names an on-disk event store directory. The port compiles
-    both link quadrants, without ``storage``.
+    ``storage`` points at an on-disk ``repro_torch.storage.MmapStore``
+    directory (the reference's format, so either package's store opens).
+    When set, ``Experiment.compile`` opens the store instead of generating
+    ``dataset``, backs the event stream with its memory-mapped columns and
+    runs the event pipeline out-of-core: the uniform adjacency built by the
+    streaming two-pass CSR, the store's pages released after every batch.
+    Results are bit-identical to the in-memory run.
     """
 
     dataset: str = "wikipedia"

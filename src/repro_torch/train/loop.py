@@ -293,7 +293,12 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     default, as in the reference) or with ``device=True``; ``shards``
     raises ``NotImplementedError``. The uniform hooks' adjacency is built
     once over the full stream at construction (the strict ``t < query_t``
-    filter keeps it leak-free). Parameters are leaf tensors with
+    filter keeps it leak-free). ``store`` (a ``repro_torch.storage.
+    EventStore`` whose columns back ``data``, e.g. ``data =
+    store.to_data()``) runs the stream out-of-core: the uniform adjacency
+    comes from the streaming two-pass CSR, and the loader releases the
+    store's pages after every batch (``storage/windows_released``).
+    Parameters are leaf tensors with
     ``requires_grad``, from the port's seeded init (``torch.Generator``
     seeded with ``seed``) or from ``load_params`` (e.g. the reference's, via
     ``repro_torch.convert.params_from_jax``); the AdamW state (``lr``,
@@ -324,6 +329,7 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         val_ratio: float = 0.15,
         test_ratio: float = 0.15,
         fused=None,
+        store=None,
         telemetry: Optional[Telemetry] = None,
         device="cuda",
     ):
@@ -343,6 +349,7 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.model_name = model_name
         self.data = data
+        self._store = store
         self.batch_size = batch_size
         self.sampler_spec = spec
         self.fused = fused
@@ -389,7 +396,11 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
             device=self.device,
         )
         for hook in self.manager.hooks():
-            if isinstance(hook, UniformNeighborHook):
+            if not isinstance(hook, UniformNeighborHook):
+                continue
+            if store is not None:
+                hook.build_from_store(store)
+            else:
                 hook.build(data.src, data.dst, data.edge_t,
                            np.arange(len(data.src), dtype=np.int64))
         self.opt_cfg = AdamWConfig(lr=1e-4 if lr is None else lr)
@@ -418,10 +429,19 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         batch). The recipe's ``DeviceTransferHook`` has no contract, so the
         topological order may run it before the neighbor hook; the
         reference's ``PrefetchLoader`` stages the finished batch again, and
-        so does this loop."""
+        so does this loop. With a store, its pages are released after each
+        staged batch has been handed off (staging copied what it keeps)."""
         tel = self.telemetry
+        on_batch = None
+        if self._store is not None:
+            store = self._store
+
+            def on_batch():
+                store.release()
+                tel.count("storage/windows_released")
+
         it = iter(DGDataLoader(DGraph(data), self.manager,
-                               batch_size=self.batch_size))
+                               batch_size=self.batch_size, on_batch=on_batch))
         while True:
             with tel.span("loader/stage"):
                 batch = next(it, None)

@@ -61,7 +61,13 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.launch.train", "repro_torch.train.tg_trainer",
             "repro_torch.core.events", "repro_torch.nn.norm",
             "repro_torch.models.tg.graphmixer", "repro_torch.models.tg.dygformer",
-            "repro_torch.models.tg.tpnet", "repro_torch.core.device_uniform"} <= set(names)
+            "repro_torch.models.tg.tpnet", "repro_torch.core.device_uniform",
+            "repro_torch.storage", "repro_torch.storage.base",
+            "repro_torch.storage.memory", "repro_torch.storage.mmap",
+            "repro_torch.storage.windows", "repro_torch.storage.csr",
+            "repro_torch.models.tg.edgebank", "repro_torch.serve.faults",
+            "repro_torch.serve.graph_service", "repro_torch.obs.profiler",
+            "repro_torch.utils", "repro_torch.utils.prof"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -134,6 +140,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_main(["--arch", "hymba-1.5b", "--reduced"])
+    # The online graph service and its learned tier (storage, serving and
+    # profiler slice).
+    from repro_torch.serve import OnlineGraphService
+    from repro_torch.serve.graph_service import learned_link_params
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnlineGraphService(10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        learned_link_params(0, 10)
     DeviceRecencySampler(10, 4, device="cpu")  # the explicit CPU path runs
 
 

@@ -17,7 +17,8 @@ Held:
   ``state_dict`` interchange; uniform draws (a chi-square test at a fixed
   seed); its int64 key on a graph where the reference device twin's int32
   key refuses (ROADMAP C);
-* the store-built forms and ``shards`` are refused (ROADMAP A4, A5);
+* the store-built forms build the same CSR as ``build``; ``shards``, and
+  a store-backed experiment over data shards, are refused (ROADMAP A5);
 * ``tiny`` pipelines of 2-layer TGAT (the reference's default; the classic
   path) over each uniform sampler: on the host sampler val MRR within 1e-4
   of the reference pipeline's; on the device sampler (whose draws torch
@@ -215,13 +216,42 @@ def test_device_twin_keeps_a_key_the_reference_int32_key_refuses():
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+def test_store_builds_equal_build():
+    """The store-built forms build: the CSR of ``build_from_store`` equals
+    ``build``'s, on both uniform samplers."""
+    from repro_torch.storage import InMemoryStore
+
+    src, dst, _, n = _stream(seed=4)
+    # Distinct times: on a shared (node, time) pair the two builds may order
+    # entries differently (repro_torch/storage/csr.py).
+    store = InMemoryStore(src, dst, 3 * np.arange(len(src)), num_nodes=n)
+    for make in (lambda: UniformSampler(n, 2),
+                 lambda: DeviceUniformSampler(n, 2, device="cpu")):
+        want, got = make(), make()
+        want.build(store.src, store.dst, store.edge_t)
+        got.build_from_store(store, chunk_size=37)
+        for key in CSR:
+            np.testing.assert_array_equal(got.state_dict()[key],
+                                          want.state_dict()[key])
+
+
 def test_store_builds_and_shards_are_refused():
-    for s in (UniformSampler(4, 2), DeviceUniformSampler(4, 2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A4"):
-            s.build_from_store(object())
+    """What stays refused beside the store builds (which now build,
+    ``test_store_builds_equal_build``): a mesh-sharded uniform sampler, and
+    a store-backed experiment over data shards (ROADMAP A5)."""
+    from repro_torch.storage import InMemoryStore
+    from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
+
     with pytest.raises(NotImplementedError, match="A5"):
         RecipeRegistry.build(RECIPE_TGB_LINK, num_nodes=4, device="cpu",
                              spec=SamplerSpec(kind="uniform", device=True, shards=2))
+    src, dst, _, n = _stream(seed=4)
+    store = InMemoryStore(src, dst, 3 * np.arange(len(src)), num_nodes=n)
+    exp = Experiment(data=DataSpec("tiny"), model=ModelSpec("tgat", TGAT),
+                     sampler=SamplerSpec(kind="uniform", k=2),
+                     train=TrainSpec(batch_size=64, data_shards=2))
+    with pytest.raises(NotImplementedError, match="A5"):
+        exp.compile(data=store, device="cpu")
 
 
 @pytest.fixture(scope="module")
