@@ -1,4 +1,4 @@
-"""Device-resident recency sampling in PyTorch (single device).
+"""Device-resident recency sampling in PyTorch.
 
 ``DeviceRecencySampler`` keeps the per-node circular buffers of the K most
 recent interactions on the device, in the packed layout of the reference
@@ -28,16 +28,40 @@ clone of the buffer per batch at the quickstart size) and never mutates
 the tensors it replaces, so a ``packed_buffer`` reference taken before an
 update stays the pre-update snapshot — the fused attention reads the state
 a batch was sampled from, as JAX's immutable arrays guarantee in the
-reference. The ``mesh=`` sharded path waits for the multi-GPU slice.
+reference.
+
+**Node-sharded** (``mesh=``, ``docs/sharding.md``): over the ``mesh_axis``
+ranks of a ``DeviceMesh``, the rank at coordinate ``s`` owns nodes
+``[s * per, (s + 1) * per)`` (``per = ceil(N / shards)``) and holds only
+their ``(per + 1, K, 3)`` block, with its own sink at local row ``per``.
+Every rank sees the same (replicated) batch. ``update`` is rank-local:
+owned events go to their local rows, everything else (other ranks' nodes
+and padding) to the local sink, through the same ``_insert_stream``, so an
+owned row evolves exactly as on one device. ``sample`` gathers the owned
+seeds (the rest read zeros), one ``all_reduce`` over the axis's group
+assembles every seed's row from its single owner, and the count mask runs
+replicated: the result is bit-equal to the one-device sampler at any shard
+count. ``state_dict`` assembles the canonical host layout (one more
+``all_reduce``, every rank gets it) and ``load_state_dict`` repacks any
+canonical state for this rank's block, so checkpoints move across mesh
+shapes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.sampler import NeighborBlock
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    all_reduce_flat,
+    axis_group,
+    axis_index,
+    axis_size,
+    node_rows_per_shard,
+)
 
 
 def as_int32(a, name: str, device) -> torch.Tensor:
@@ -135,48 +159,80 @@ def _finish_sample(rows, cc, *, k: int):
     return ids, times, eids, mask
 
 
+def _empty_rows(rows: int, k: int, device):
+    """``rows`` empty buffer rows (ids/eids -1, times 0) and their zero
+    cursor/count rows."""
+    buf = torch.zeros((rows, k, 3), dtype=torch.int32, device=device)
+    buf[..., 0] = -1
+    buf[..., 2] = -1
+    return buf, torch.zeros((rows, 2), dtype=torch.int32, device=device)
+
+
 class DeviceRecencySampler:
     """PyTorch device-resident most-recent-K temporal neighbor sampler.
 
-    Twin of ``repro.core.device_sampler.DeviceRecencySampler`` on one
-    device: ``update`` accepts an optional ``valid`` mask so padded
-    fixed-shape batches route their padding to the sink row, and
-    ``sample`` returns a fixed-shape ``NeighborBlock``.
+    Twin of ``repro.core.device_sampler.DeviceRecencySampler``: ``update``
+    accepts an optional ``valid`` mask so padded fixed-shape batches route
+    their padding to the sink row, and ``sample`` returns a fixed-shape
+    ``NeighborBlock``. With ``mesh`` (a ``DeviceMesh``, e.g.
+    ``distributed.sharding.make_node_mesh``) the buffers are partitioned by
+    node id over ``mesh_axis``, this rank's block on ``device`` (the
+    module docstring; ``docs/sharding.md``).
     """
 
     def __init__(self, num_nodes: int, k: int, directed: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None, mesh_axis: str = "data"):
         if k <= 0:
             raise ValueError("k must be positive")
         self.num_nodes = int(num_nodes)
         self.k = int(k)
         self.directed = directed
         self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is not None:
+            if mesh_axis not in mesh.mesh_dim_names:
+                raise ValueError(f"mesh has no axis {mesh_axis!r}; axes are "
+                                 f"{mesh.mesh_dim_names}")
+            self._group = axis_group(mesh, mesh_axis)
+            shards = axis_size(mesh, mesh_axis)
+            self._per = node_rows_per_shard(self.num_nodes, shards)
+            self._lo = axis_index(mesh, mesh_axis) * self._per
         self.reset_state()
+
+    @property
+    def _owned(self) -> int:
+        """The number of real nodes in this rank's block."""
+        return max(min(self._lo + self._per, self.num_nodes) - self._lo, 0)
 
     def reset_state(self) -> None:
         """Reallocate empty buffers on the device: ids/eids -1, times 0,
-        cursor/count 0."""
-        n, k, dev = self.num_nodes, self.k, self.device
-        buf = torch.zeros((n + 1, k, 3), dtype=torch.int32, device=dev)
-        buf[..., 0] = -1
-        buf[..., 2] = -1
-        self.state = {"buf": buf,
-                      "cc": torch.zeros((n + 1, 2), dtype=torch.int32,
-                                        device=dev)}
+        cursor/count 0 (this rank's ``per + 1`` rows when sharded)."""
+        rows = self.num_nodes if self._mesh is None else self._per
+        buf, cc = _empty_rows(rows + 1, self.k, self.device)
+        self.state = {"buf": buf, "cc": cc}
 
     @property
     def packed_buffer(self) -> torch.Tensor:
-        """(N+1, K, 3) packed rows (id, time, edge id), sink row last —
-        what ``fused_temporal_layer`` consumes. Never mutated in place."""
+        """Packed rows (id, time, edge id) — what ``fused_temporal_layer``
+        consumes; never mutated in place. One device: ``(N+1, K, 3)``, sink
+        row last. Sharded: this rank's ``(rows_per_shard + 1, K, 3)``
+        block, sink last; node ids are then not row indices — read it
+        through ``fused_temporal_layer_sharded``."""
         return self.state["buf"]
+
+    @property
+    def rows_per_shard(self):
+        """Node rows owned per shard (``ceil(N / shards)``) when sharded;
+        ``None`` on one device."""
+        return None if self._mesh is None else self._per
 
     def update(self, src, dst, t, eids=None, valid=None) -> None:
         """Insert a time-ordered batch of edges into the circular buffers.
 
         ``src``/``dst``/``t`` are (B,) host arrays or tensors; ``eids``
         defaults to -1 (no edge-feature association); ``valid`` is an
-        optional (B,) bool mask (invalid rows go to the sink row N).
+        optional (B,) bool mask (invalid rows go to the sink row). Sharded,
+        each rank inserts the events of the nodes it owns.
         """
         dev = self.device
         src = as_int32(src, "src", dev)
@@ -191,16 +247,37 @@ class DeviceRecencySampler:
         t = as_int32(t, "t", dev)
         nodes, ok, vals = _event_stream(src, dst, t, eids, valid,
                                         directed=self.directed)
+        if self._mesh is not None:
+            lo, per = self._lo, self._per
+            ok = ok & (nodes >= lo) & (nodes < lo + per)
+            nodes = torch.where(ok, nodes - lo, per)
         self.state = _insert_stream(self.state, nodes, ok, vals, k=self.k)
+
+    def _sharded_rows(self, seeds):
+        """Each seed's gathered rows and cursor/count from its owner: the
+        owned seeds' local rows (zeros for the rest), summed over the
+        node axis in one ``all_reduce``."""
+        lo, per, k = self._lo, self._per, self.k
+        owned = (seeds >= lo) & (seeds < lo + per)
+        rows, cc = _gather_rows(self.state, torch.where(owned, seeds - lo, per),
+                                k=k)
+        both = torch.cat([rows.reshape(-1, 3 * k), cc], dim=1)
+        both = torch.where(owned[:, None], both, 0)
+        dist.all_reduce(both, group=self._group)
+        return both[:, :3 * k].reshape(-1, k, 3), both[:, 3 * k:]
 
     def sample(self, seeds, query_t=None) -> NeighborBlock:
         """Gather each seed's (up to) K most recent neighbors on the device,
         most-recent-first, padded with -1 ids / 0 times. ``query_t`` (B,)
         optionally masks neighbors newer than each seed's query time (the
         online service's guard: ids and eids -1, times 0, mask False
-        there), as the reference's does."""
+        there), as the reference's does. Sharded, every rank of the axis
+        calls it with the same seeds and gets the same block."""
         seeds = as_int32(seeds, "seeds", self.device)
-        rows, cc = _gather_rows(self.state, seeds, k=self.k)
+        if self._mesh is None:
+            rows, cc = _gather_rows(self.state, seeds, k=self.k)
+        else:
+            rows, cc = self._sharded_rows(seeds)
         ids, times, eids, mask = _finish_sample(rows, cc, k=self.k)
         if query_t is not None:
             qt = as_int32(query_t, "query_t", self.device)[:, None]
@@ -211,11 +288,26 @@ class DeviceRecencySampler:
         return NeighborBlock(ids, times, eids, mask)
 
     # -- checkpoint contract (shared with the reference samplers) ---------
+    def _canonical(self):
+        """The canonical ``(N, K, 3)`` buffer and ``(N, 2)`` cursor/count
+        rows on the device (sinks stripped; sharded, assembled from every
+        rank's block by one ``all_reduce`` of zero-filled arrays with one
+        owner per row)."""
+        if self._mesh is None:
+            return self.state["buf"][:-1], self.state["cc"][:-1]
+        n, k, lo, m = self.num_nodes, self.k, self._lo, self._owned
+        buf = torch.zeros((n, k, 3), dtype=torch.int32, device=self.device)
+        cc = torch.zeros((n, 2), dtype=torch.int32, device=self.device)
+        buf[lo:lo + m] = self.state["buf"][:m]
+        cc[lo:lo + m] = self.state["cc"][:m]
+        return tuple(all_reduce_flat([buf, cc], self._group))
+
     def state_dict(self) -> dict:
         """Canonical host-numpy state ``{ids, times, eids, cursor, count}``
-        (int64, sink row stripped)."""
-        buf = self.state["buf"][:-1].cpu().numpy()
-        cc = self.state["cc"][:-1].cpu().numpy()
+        (int64, sink rows stripped): the same at any shard count, and
+        loadable by either package's recency samplers at any mesh shape.
+        Sharded, every rank of the axis calls it."""
+        buf, cc = (x.cpu().numpy() for x in self._canonical())
         return {
             "ids": buf[..., 0].astype(np.int64),
             "times": buf[..., 1].astype(np.int64),
@@ -225,19 +317,17 @@ class DeviceRecencySampler:
         }
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore canonical buffers saved by any recency sampler."""
+        """Restore canonical buffers saved by any recency sampler at any
+        mesh shape; sharded, this rank keeps its block of them."""
         buf = np.stack([np.asarray(state["ids"]),
                         np.asarray(state["times"]),
                         np.asarray(state["eids"])], axis=-1).astype(np.int32)
         cc = np.stack([np.asarray(state["cursor"]),
                        np.asarray(state["count"])], axis=-1).astype(np.int32)
-        sink = np.zeros((1, self.k, 3), np.int32)
-        sink[..., 0] = -1
-        sink[..., 2] = -1
-        self.state = {
-            "buf": torch.as_tensor(np.concatenate([buf, sink]),
-                                   device=self.device),
-            "cc": torch.as_tensor(
-                np.concatenate([cc, np.zeros((1, 2), np.int32)]),
-                device=self.device),
-        }
+        rows = self.num_nodes if self._mesh is None else self._per
+        lo = 0 if self._mesh is None else self._lo
+        m = self.num_nodes if self._mesh is None else self._owned
+        full_buf, full_cc = _empty_rows(rows + 1, self.k, self.device)
+        full_buf[:m] = torch.as_tensor(buf[lo:lo + m], device=self.device)
+        full_cc[:m] = torch.as_tensor(cc[lo:lo + m], device=self.device)
+        self.state = {"buf": full_buf, "cc": full_cc}

@@ -227,7 +227,9 @@ class PrefetchLoader:
     the batch is marked used on that stream (``record_stream``) so the
     caching allocator does not hand its memory back while the consumer's
     kernels may still read it. On the CPU nothing is staged through the
-    pool, but the thread runs all the same.
+    pool, but the thread runs all the same. In a multi-rank run ``device``
+    is the rank's device; a node-sharded sampler's collectives then run in
+    each rank's producer thread, in the same order on every rank.
 
     ``telemetry`` (a ``repro_torch.obs.Telemetry``) sees a ``loader/stage``
     span per producer pass, the ``loader/prefetch_wait`` histogram, the

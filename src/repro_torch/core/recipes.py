@@ -3,11 +3,11 @@
 ``RECIPE_TGB_LINK`` builds the TGB link-prediction hook pipeline: random
 training negatives, one-vs-many eval negatives, recency or uniform
 neighbors, edge-feature lookup, padding and the device transfer. The port
-carries the four one-device branches of ``repro.core.recipes``: the
-recency sampler on the host (``SamplerSpec(kind="recency")``, the
-reference's default) or the device (``device=True``), and the uniform
-sampler (``kind="uniform"``) on either; the mesh-sharded samplers
-(``shards``) wait for the multi-GPU slice. ``RECIPE_DTDG_SNAPSHOT`` builds
+carries the branches of ``repro.core.recipes``: the recency sampler on the
+host (``SamplerSpec(kind="recency")``, the reference's default) or the
+device (``device=True``), and the uniform sampler (``kind="uniform"``) on
+either, the device samplers also node-sharded over a mesh of ranks
+(``shards`` / ``mesh=``). ``RECIPE_DTDG_SNAPSHOT`` builds
 the DTDG snapshot link pipeline's per-snapshot negatives. The other recipes
 are not part of the port yet.
 """
@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from repro_torch.core.hooks import HookManager
+from repro_torch.device import resolve_device
 from repro_torch.core.tg_hooks import (
     DeviceRecencyNeighborHook,
     DeviceTransferHook,
@@ -77,23 +78,39 @@ def _tgb_link(
     dst_pool: Optional[np.ndarray] = None,
     seed: int = 0,
     device="cuda",
+    mesh=None,
+    mesh_axis: Optional[str] = None,
 ) -> HookManager:
     """Build the TGB link-prediction hook pipeline from a ``SamplerSpec``.
 
     ``kind`` "recency" or "uniform", on the host or with ``device=True`` on
-    one device; ``shards`` raises ``NotImplementedError`` (ROADMAP A5).
-    ``spec.num_hops`` (``None`` is 1) selects the hop-2 frontier, whose edge
-    features a second lookup gathers (``nbr2_feats``), as in the reference.
-    A uniform hook's adjacency must be built (``hook.build(...)`` over the
-    stream) before the first batch; ``CTDGLinkPipeline`` builds it over the
-    full stream, as the reference's does.
+    ``device`` (this rank's device in a multi-rank run). ``spec.num_hops``
+    (``None`` is 1) selects the hop-2 frontier, whose edge features a
+    second lookup gathers (``nbr2_feats``), as in the reference. A uniform
+    hook's adjacency must be built (``hook.build(...)`` over the stream)
+    before the first batch; ``CTDGLinkPipeline`` builds it over the full
+    stream, as the reference's does.
+
+    ``mesh`` (a ``DeviceMesh``), or ``spec.shards``, which resolves to
+    ``make_node_mesh(spec.shards, spec.mesh_axis)`` here, shards the device
+    samplers' state by node id over ``mesh_axis`` (default
+    ``spec.mesh_axis``; ``spec.partition`` picks the uniform CSR's cuts).
+    Under a mesh the recency hook exposes no buffer unless
+    ``spec.expose_buffer`` is True: the sharded block can only be read by
+    the shard-aware fused layer (``docs/sharding.md``). Every rank builds
+    the same recipe and sees the same batches.
     """
-    if spec.shards:
-        raise NotImplementedError(
-            "the port's RECIPE_TGB_LINK runs its samplers on one device; "
-            "mesh-sharded samplers (SamplerSpec.shards) wait for the "
-            "multi-GPU slice (ROADMAP A5)"
-        )
+    if mesh_axis is None:
+        mesh_axis = spec.mesh_axis
+    if mesh is None and spec.shards:
+        from repro_torch.distributed.sharding import make_node_mesh
+
+        mesh = make_node_mesh(spec.shards, mesh_axis,
+                              device_type=resolve_device(device).type)
+    if mesh is not None and not spec.device:
+        raise ValueError(
+            "mesh-sharded sampling requires SamplerSpec(device=True)")
+    shard_kw = {} if mesh is None else {"mesh": mesh, "mesh_axis": mesh_axis}
     num_hops = spec.num_hops if spec.num_hops is not None else 1
     m = HookManager()
     # Padding runs FIRST so negatives/neighbor tensors come out fixed-shape;
@@ -112,15 +129,19 @@ def _tgb_link(
     # and happen once per batch).
     if spec.kind == "uniform":
         hook = DeviceUniformNeighborHook if spec.device else UniformNeighborHook
-        kw = {"device": device} if spec.device else {}
+        kw = ({"device": device, "partition": spec.partition, **shard_kw}
+              if spec.device else {})
         m.register(hook(num_nodes, spec.k, include_negatives=True, seed=seed,
                         num_hops=num_hops,
                         checkpoint_adjacency=spec.checkpoint_adjacency, **kw))
     elif spec.device:
+        expose = spec.expose_buffer
+        if mesh is not None and expose is None:
+            expose = False
         m.register(DeviceRecencyNeighborHook(num_nodes, spec.k,
                                              num_hops=num_hops, device=device,
-                                             expose_buffer=spec.expose_buffer,
-                                             edge_feats=edge_feats))
+                                             expose_buffer=expose,
+                                             edge_feats=edge_feats, **shard_kw))
     else:
         m.register(RecencyNeighborHook(num_nodes, spec.k, num_hops=num_hops))
     m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))

@@ -46,7 +46,10 @@ def device_edge_table(feats, device) -> torch.Tensor:
     """Device-resident float32 copy of an edge-feature storage array, cached
     by storage identity and device (epoch resets rebuild nothing; the entry
     pins the source array so its ``id`` cannot be recycled). A read-only
-    memmap column is copied, not aliased (``device.host_tensor``)."""
+    memmap column is copied, not aliased (``device.host_tensor``). Each rank
+    of a multi-rank run is a process of its own, so the table is staged
+    once per rank, on the rank's device (the reference stages it once,
+    mesh-replicated)."""
     if isinstance(feats, torch.Tensor):
         return feats.to(device=device, dtype=torch.float32)
     dev = torch.device(device)
@@ -248,12 +251,14 @@ class DeviceRecencyNeighborHook(Hook):
     the sampler's update writes fresh tensors, so the stashed reference is
     the pre-update snapshot. ``edge_feat_table`` (the (E, d_edge) device
     table indexed by the buffer's edge-id channel) rides along when
-    ``edge_feats`` is given.
+    ``edge_feats`` is given. With ``mesh`` the sampler is node-sharded over
+    ``mesh_axis`` and ``nbr_buf`` is this rank's block (read by the
+    shard-aware fused layer; the recipe leaves it off unless asked).
     """
 
     def __init__(self, num_nodes: int, k: int, num_hops: int = 1,
                  device="cuda", expose_buffer: Optional[bool] = None,
-                 edge_feats=None):
+                 edge_feats=None, mesh=None, mesh_axis: str = "data"):
         if num_hops not in (1, 2):
             raise ValueError("num_hops must be 1 or 2")
         expose_buffer = True if expose_buffer is None else expose_buffer
@@ -265,7 +270,8 @@ class DeviceRecencyNeighborHook(Hook):
         # Shared checkpoint key with the host twin of the reference.
         super().__init__(requires={"src", "dst", "time", "neg"},
                          produces=produces, state_key="RecencyNeighborHook")
-        self.sampler = DeviceRecencySampler(num_nodes, k, device=device)
+        self.sampler = DeviceRecencySampler(num_nodes, k, device=device,
+                                            mesh=mesh, mesh_axis=mesh_axis)
         self.k = k
         self.num_hops = num_hops
         self.expose_buffer = expose_buffer
@@ -419,8 +425,11 @@ class DeviceUniformNeighborHook(UniformNeighborHook):
 
     def __init__(self, num_nodes: int, k: int, include_negatives: bool = False,
                  seed: int = 0, num_hops: int = 1,
-                 checkpoint_adjacency: bool = True, device="cuda"):
+                 checkpoint_adjacency: bool = True, device="cuda", mesh=None,
+                 mesh_axis: str = "data", partition: str = "rows"):
         self._device = resolve_device(device)
+        self._shard_kw = {"mesh": mesh, "mesh_axis": mesh_axis,
+                          "partition": partition}
         super().__init__(num_nodes, k, include_negatives=include_negatives,
                          seed=seed, num_hops=num_hops,
                          checkpoint_adjacency=checkpoint_adjacency)
@@ -428,7 +437,8 @@ class DeviceUniformNeighborHook(UniformNeighborHook):
     def _make_sampler(self, num_nodes, k, seed, checkpoint_adjacency):
         return DeviceUniformSampler(num_nodes, k, seed=seed,
                                     device=self._device,
-                                    checkpoint_adjacency=checkpoint_adjacency)
+                                    checkpoint_adjacency=checkpoint_adjacency,
+                                    **self._shard_kw)
 
     def __call__(self, batch: Batch) -> Batch:
         """Sample the batch's uniform temporal neighborhoods on the device."""
@@ -579,8 +589,9 @@ def stage_batch(batch: Batch, device, pool=None) -> Batch:
 
 class DeviceTransferHook(Hook):
     """Moves all array attributes to a torch device (paper Table 2: R=∅,
-    P=∅). Register last; ordering among contract-free hooks follows
-    registration."""
+    P=∅); in a multi-rank run, the rank's device (every rank stages the
+    whole, replicated batch). Register last; ordering among contract-free
+    hooks follows registration."""
 
     def __init__(self, device="cuda"):
         super().__init__(requires=set(), produces=set())

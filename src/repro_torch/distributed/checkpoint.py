@@ -20,8 +20,12 @@ helpers) for nested dicts and tuples of tensors and numpy arrays:
     place afterwards (the port's AdamW steps in place) is saved as it was.
 
 Restored leaves are host numpy arrays; callers move them to their device.
-The reference's elastic resharding (``mesh=``) waits for the multi-GPU
-slice.
+Pipeline checkpoints are mesh-agnostic without help from here: sampler
+state is saved in its canonical host layout and parameters are replicated,
+so every rank restores the same bundle and repacks it for its own mesh
+(``train.loop.CTDGLinkPipeline.restore_checkpoint``). The reference's
+elastic restore of parameters by logical axes (``restore(mesh=)``) places
+LM parameters and belongs to LM training (ROADMAP A6): it raises.
 """
 
 from __future__ import annotations
@@ -168,14 +172,22 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int] = None, *, target=None):
+def restore(ckpt_dir: str, step: Optional[int] = None, *, target=None,
+            mesh=None, rules=None):
     """Load a checkpoint; returns ``(tree, step, extra_meta)``.
 
     ``step=None`` takes the newest intact checkpoint. With ``target`` (a
     prototype of nested dicts and tuples) the leaves are reassembled into
     its structure (``assemble``); without it a flat ``{key: array}`` dict
     is returned.
-    Leaves are numpy arrays."""
+    Leaves are numpy arrays. ``mesh`` (the reference's elastic placement of
+    leaves by their logical axes) raises ``NotImplementedError``: it is LM
+    training's (ROADMAP A6)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "restore(mesh=) places parameters by logical axes on a mesh "
+            "(DTensor); that belongs to LM training (ROADMAP A6). Pipeline "
+            "checkpoints restore on any mesh without it.")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

@@ -17,6 +17,7 @@ from repro_torch.kernels.temporal_attention.ops import (
     fused_temporal_layer,
     fused_temporal_layer_hop2,
     fused_temporal_layer_per_seed,
+    fused_temporal_layer_sharded,
     temporal_attention,
 )
 from repro_torch.kernels.temporal_attention.ref import (
@@ -43,6 +44,7 @@ __all__ = [
     "fused_temporal_layer_kernel",
     "fused_temporal_layer_per_seed",
     "fused_temporal_layer_ref",
+    "fused_temporal_layer_sharded",
     "reset_launches",
     "ta_plan",
     "temporal_attention",

@@ -13,6 +13,9 @@
                                (S * K, H, D) table (2-layer TGAT's final
                                hop), as a synthetic packed buffer.
 ``fused_recency_attention``  — the ids-only variant (no bias groups).
+``fused_temporal_layer_sharded`` — the fused layer over one node shard's
+                               block of a node-partitioned buffer, summed
+                               over the node group (multi-rank meshes).
 
 ``mode``:
   * ``"auto"``   — the CUDA kernel for CUDA tensors, the plain PyTorch
@@ -36,7 +39,9 @@ computes that gradient from the saved operands.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import all_reduce_flat
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.temporal_attention.kernel import (
     fused_recency_attention_kernel,
@@ -48,6 +53,7 @@ from repro_torch.kernels.temporal_attention.kernel import (
 from repro_torch.kernels.temporal_attention.ref import (
     GRAD_NAMES,
     fused_recency_attention_ref,
+    fused_temporal_layer_bwd_ref,
     fused_temporal_layer_ref,
     temporal_attention_ref,
 )
@@ -123,6 +129,81 @@ def fused_temporal_layer(q, k_table, v_table, seeds, seed_times, buf, *,
         q.contiguous(), k_table.contiguous(), v_table.contiguous(), seeds,
         seed_times, buf.to(torch.int32).contiguous(),
         *(kw[name] for name in _ARGS[6:]))
+
+
+class _FusedLayerShardedFn(torch.autograd.Function):
+    """The fused layer on one node shard's block, summed over the node
+    group: the reference's ``_fused_layer_sharded_call`` and its custom VJP.
+
+    ``forward`` runs the layer locally (K1 on the kernel path, the plain
+    version otherwise) for the seeds this rank owns (the rest are -1: exact
+    zero rows) and ``all_reduce``s the output over ``group``: one owner's
+    value plus exact zeros, so the sum is bit-equal to the one-device
+    layer. ``backward`` applies the same local call's VJP (K2, or the plain
+    backward) to the incoming cotangent, which the node-replicated
+    downstream makes equal on every rank, and ``all_reduce``s the operand
+    cotangents (``q``, the tables, the time and edge weights) in one call:
+    every rank then holds the whole layer gradient, and nothing else of the
+    gradient tree needs a collective over the node group. Seeds, times,
+    the buffer and the edge table get no cotangent.
+    """
+
+    @staticmethod
+    def forward(ctx, group, kernel, *args):
+        ctx.save_for_backward(*args)
+        ctx.group, ctx.kernel = group, kernel
+        kw = dict(zip(_ARGS, args))
+        out = (_FWD if kernel else fused_temporal_layer_ref)(**kw)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        kw = dict(zip(_ARGS, ctx.saved_tensors))
+        bwd = _BWD if ctx.kernel else fused_temporal_layer_bwd_ref
+        grads = bwd(g.contiguous(), **kw)
+        names = [n for n in _ARGS if n in GRAD_NAMES and kw[n] is not None]
+        summed = dict(zip(names, all_reduce_flat(
+            [grads[n].to(torch.float32) for n in names], ctx.group)))
+        return (None, None) + tuple(
+            summed[name].reshape(x.shape).to(x.dtype) if name in summed
+            else None for name, x in kw.items())
+
+
+def fused_temporal_layer_sharded(q, k_table, v_table, seeds, seed_times, buf,
+                                 *, group, rows_per_shard: int, time_w=None,
+                                 time_b=None, wt_k=None, wt_v=None,
+                                 edge_feats=None, we_k=None, we_v=None,
+                                 mode: str = "auto"):
+    """Shard-aware ``fused_temporal_layer`` over a node-partitioned buffer.
+
+    Every rank of the node ``group`` calls it with the same (replicated)
+    ``q``, tables, weights and *global* seed ids; ``buf`` is this rank's
+    ``(rows_per_shard + 1, K, 3)`` block (``DeviceRecencySampler(mesh=)
+    .packed_buffer``, its sink last), whose id and edge-id channels hold
+    global ids, so the table gathers need no remap. The rank at coordinate
+    ``s`` owns seeds ``[s * per, (s + 1) * per)``: it remaps them to its
+    local rows and marks the rest -1 (the kernel family's zero path), runs
+    the layer (K1 under ``"auto"`` on CUDA tensors, the plain version on
+    the CPU or with ``"ref"``) and the output is summed over ``group``:
+    bit-equal to the one-device layer at any shard count. Differentiable
+    through ``_FusedLayerShardedFn`` (K2 on the kernel path). Returns
+    (S, H, D) on every rank.
+    """
+    per = int(rows_per_shard)
+    lo = dist.get_rank(group=group) * per
+    seeds = seeds.to(torch.int32)
+    owned = (seeds >= lo) & (seeds < lo + per)
+    local = torch.where(owned, seeds - lo, -1).contiguous()
+    if seed_times is not None:
+        seed_times = seed_times.to(torch.int32).contiguous()
+    kw = dict(time_w=time_w, time_b=time_b, wt_k=wt_k, wt_v=wt_v,
+              edge_feats=edge_feats, we_k=we_k, we_v=we_v)
+    kw = {k: None if v is None else v.contiguous() for k, v in kw.items()}
+    return _FusedLayerShardedFn.apply(
+        group, use_kernel(mode, q), q.contiguous(), k_table.contiguous(),
+        v_table.contiguous(), local, seed_times,
+        buf.to(torch.int32).contiguous(), *(kw[name] for name in _ARGS[6:]))
 
 
 def fused_temporal_layer_hop2(q, k_table, v_table, frontier, frontier_times,

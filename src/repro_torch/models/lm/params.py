@@ -10,7 +10,8 @@ module builds a nested dict of ``Spec``; from it we derive
     parameters with ``convert.lm_params_from_jax`` instead);
   * ``abstract`` — meta-device tensors of the same shapes (no allocation);
   * ``tree_shardings`` — the logical axes of every leaf, kept as data: the
-    port runs on one card, and sharding waits for the multi-GPU work.
+    port places no LM parameter on a mesh yet (DTensor placement by these
+    axes belongs to LM training, ROADMAP A6).
 """
 
 from __future__ import annotations

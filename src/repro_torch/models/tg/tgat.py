@@ -100,27 +100,32 @@ def _time_zero(params, seed_t):
 
 
 def _fused_layer0(params, cfg, h_all, h_seed, seeds, seed_t, buf, edge_table,
-                  mode):
+                  mode, node_axis=None, buf_rows=None):
     """Layer-0 attention for ``seeds`` straight off the packed buffer: the
     node term from the (N, d_model) table, the time and edge terms folded
-    in by the fused layer."""
+    in by the fused layer (the shard-aware one with ``node_axis``)."""
     att = fused_seed_neighbor_attention(
         params["attn_0"], h_all,
         torch.cat([h_seed, _time_zero(params, seed_t)], dim=-1),
         seeds, seed_t, buf, params["time"], d_edge=cfg.d_edge,
         edge_table=edge_table, num_heads=cfg.num_heads, mode=mode,
+        node_axis=node_axis, buf_rows=buf_rows,
     )
     return mlp(params["merge_0"], torch.cat([att, h_seed], dim=-1))
 
 
-def _embed_fused(params, cfg: TGATConfig, batch, static_feats, mode):
+def _embed_fused(params, cfg: TGATConfig, batch, static_feats, mode,
+                 node_axis=None, buf_rows=None):
     """Every attention through the fused layer (device sampler).
 
     One layer is one fused call over the buffer. Two layers also embed the
     hop-1 frontier through layer 0 (padded slots, id -1, give zero rows;
     each frontier node queries the buffer at its own interaction time) and
     run the final hop over the seeds' own computed frontier rows
-    (``fused_final_hop_attention``): three fused calls a forward.
+    (``fused_final_hop_attention``): three fused calls a forward. With
+    ``node_axis``/``buf_rows`` both buffer reads (the seeds' and the hop-2
+    frontier's) run shard-aware over this rank's block; the final hop reads
+    no buffer and stays unsharded, as in the reference.
     """
     seeds, seed_t = batch["seed_nodes"], batch["seed_times"]
     buf = batch["nbr_buf"]
@@ -128,7 +133,7 @@ def _embed_fused(params, cfg: TGATConfig, batch, static_feats, mode):
     h_all = all_node_features(params["nodes"], static_feats)  # (N, d_model)
     h_seed = gather_rows(h_all, seeds.long())
     h1 = _fused_layer0(params, cfg, h_all, h_seed, seeds, seed_t, buf,
-                       edge_table, mode)
+                       edge_table, mode, node_axis, buf_rows)
     if cfg.num_layers == 1:
         return h1
 
@@ -138,7 +143,7 @@ def _embed_fused(params, cfg: TGATConfig, batch, static_feats, mode):
     h_f = gather_rows(h_all, torch.clamp(f_nodes, min=0).long())
     h_f = torch.where((f_nodes >= 0)[:, None], h_f, 0.0)
     h_f1 = _fused_layer0(params, cfg, h_all, h_f, f_nodes, f_t, buf,
-                         edge_table, mode)
+                         edge_table, mode, node_axis, buf_rows)
     att = fused_final_hop_attention(
         params["attn_1"], h_f1,
         torch.cat([h1, _time_zero(params, seed_t)], dim=-1),
@@ -149,17 +154,22 @@ def _embed_fused(params, cfg: TGATConfig, batch, static_feats, mode):
     return mlp(params["merge_1"], torch.cat([att, h1], dim=-1))
 
 
-def embed(params, cfg: TGATConfig, batch, static_feats=None, fused=None):
+def embed(params, cfg: TGATConfig, batch, static_feats=None, fused=None,
+          node_axis=None, buf_rows=None):
     """Embed all S seeds; two layers read the hop-2 tensors (``nbr2_*``).
 
     ``fused`` selects the path (``models.tg.common.fused_mode``):
     ``None``/"auto" fuses whenever the batch has ``nbr_buf``; ``False``
     forces the classic pre-gathered path; "ref"/"kernel" force the plain
-    version or the kernel of the path the batch allows.
+    version or the kernel of the path the batch allows. ``node_axis`` (the
+    node axis's process group) and ``buf_rows`` run the fused layer
+    shard-aware, ``nbr_buf`` being this rank's block of a node-sharded
+    buffer (``docs/sharding.md``).
     """
     mode = fused_mode(fused, batch)
     if mode is not None:
-        return _embed_fused(params, cfg, batch, static_feats, mode)
+        return _embed_fused(params, cfg, batch, static_feats, mode,
+                            node_axis, buf_rows)
 
     cmode = classic_mode(fused)
     seeds, seed_t = batch["seed_nodes"], batch["seed_times"]
@@ -188,7 +198,8 @@ def embed(params, cfg: TGATConfig, batch, static_feats=None, fused=None):
 
 
 def link_scores(params, cfg: TGATConfig, batch, batch_size: int,
-                static_feats=None, fused=None):
+                static_feats=None, fused=None, node_axis=None, buf_rows=None):
     """(pos (B,), neg (B, Nn)) link logits for a batch."""
-    h = embed(params, cfg, batch, static_feats, fused=fused)
+    h = embed(params, cfg, batch, static_feats, fused=fused,
+              node_axis=node_axis, buf_rows=buf_rows)
     return link_logits(params["decoder"], h, batch_size)

@@ -93,7 +93,8 @@ def _zero_time(params, seed_t):
                                    device=seed_t.device))
 
 
-def _embed_fused(params, cfg: TGNConfig, state, batch, static_feats, mode):
+def _embed_fused(params, cfg: TGNConfig, state, batch, static_feats, mode,
+                 node_axis=None, buf_rows=None):
     """Device-sampling embed: attention over the packed buffer. The kv
     input's node-level slice is ``memory ‖ node features`` — both (N, ·)
     tables — so the whole node term of the k/v projections is an (N, H, Dh)
@@ -109,21 +110,23 @@ def _embed_fused(params, cfg: TGNConfig, state, batch, static_feats, mode):
     att = fused_seed_neighbor_attention(
         params["attn"], node_kv, q_in, seeds, seed_t, batch["nbr_buf"],
         params["time"], d_edge=cfg.d_edge, edge_table=edge_table,
-        num_heads=cfg.num_heads, mode=mode,
+        num_heads=cfg.num_heads, mode=mode, node_axis=node_axis,
+        buf_rows=buf_rows,
     )
     return mlp(params["merge"], torch.cat([att, m_seed, h_seed], dim=-1))
 
 
 def embed(params, cfg: TGNConfig, state, batch, static_feats=None,
-          fused=None):
+          fused=None, node_axis=None, buf_rows=None):
     """Temporal-attention embedding of the batch seeds over node memory.
 
-    ``fused`` behaves as in ``tgat.embed`` (``models.tg.common.fused_mode``
-    and ``classic_mode``).
+    ``fused``, ``node_axis`` and ``buf_rows`` behave as in ``tgat.embed``
+    (``models.tg.common.fused_mode`` and ``classic_mode``).
     """
     mode = fused_mode(fused, batch)
     if mode is not None:
-        return _embed_fused(params, cfg, state, batch, static_feats, mode)
+        return _embed_fused(params, cfg, state, batch, static_feats, mode,
+                            node_axis, buf_rows)
 
     seeds, seed_t = batch["seed_nodes"], batch["seed_times"]
     nbr_ids, nbr_t = batch["nbr_ids"], batch["nbr_times"]
@@ -191,11 +194,12 @@ def update_memory(params, cfg: TGNConfig, state, batch):
 
 
 def link_scores(params, cfg: TGNConfig, state, batch, batch_size: int,
-                static_feats=None, fused=None):
+                static_feats=None, fused=None, node_axis=None, buf_rows=None):
     """Returns ``((pos (B,), neg (B, Nn)), new_state)``; the new state is
     computed outside the autograd graph (the reference's auxiliary
     output)."""
-    h = embed(params, cfg, state, batch, static_feats, fused=fused)
+    h = embed(params, cfg, state, batch, static_feats, fused=fused,
+              node_axis=node_axis, buf_rows=buf_rows)
     logits = link_logits(params["decoder"], h, batch_size)
     with torch.no_grad():
         new_state = update_memory(params, cfg, state, batch)

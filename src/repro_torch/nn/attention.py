@@ -88,7 +88,8 @@ def seed_neighbor_attention(params, seed_feat, nbr_feat, nbr_mask,
 def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,
                                   buf, time_params, d_edge: int = 0,
                                   edge_table=None, num_heads: int = 2,
-                                  mode: str = "auto"):
+                                  mode: str = "auto", node_axis=None,
+                                  buf_rows=None):
     """Fused twin of ``seed_neighbor_attention`` over the packed buffer.
 
     The kv projection ``concat([node, edge, time]) @ W`` is split by input
@@ -101,9 +102,16 @@ def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,
     node_kv_in: (N, d_node); q_in: (S, Dq) query inputs (projected here);
     seeds/seed_times: (S,); buf: (Nb, K, 3); time_params: ``time_encode``
     params; edge_table: (E, d_edge) edge-feature storage (or None).
-    ``mode`` is forwarded to ``fused_temporal_layer``. Returns (S, d_model).
+    ``mode`` is forwarded to ``fused_temporal_layer``. With ``node_axis``
+    (the node axis's process group) and ``buf_rows`` the attention runs
+    through ``fused_temporal_layer_sharded``: ``buf`` is then this rank's
+    ``(buf_rows + 1, K, 3)`` block of the node-partitioned buffer, and the
+    output is summed over the group. Returns (S, d_model).
     """
-    from repro_torch.kernels.temporal_attention import fused_temporal_layer
+    from repro_torch.kernels.temporal_attention import (
+        fused_temporal_layer,
+        fused_temporal_layer_sharded,
+    )
 
     d_model = params["o"]["w"].shape[0]
     h = num_heads
@@ -118,12 +126,15 @@ def fused_seed_neighbor_attention(params, node_kv_in, q_in, seeds, seed_times,
     wt_k = wk["w"][d_node + d_edge:]
     wt_v = wv["w"][d_node + d_edge:]
     q = _split_heads(dense(params["q"], q_in), h)  # (S, H, Dh)
-    att = fused_temporal_layer(
-        q, k_tab, v_tab, seeds.to(torch.int32), seed_times.to(torch.int32),
-        buf, time_w=time_params["w"], time_b=time_params["b"],
-        wt_k=wt_k, wt_v=wt_v, edge_feats=edge_table if use_edge else None,
-        we_k=we_k, we_v=we_v, mode=mode,
-    )
+    kw = dict(time_w=time_params["w"], time_b=time_params["b"], wt_k=wt_k,
+              wt_v=wt_v, edge_feats=edge_table if use_edge else None,
+              we_k=we_k, we_v=we_v, mode=mode)
+    if node_axis is not None:
+        kw.update(group=node_axis, rows_per_shard=buf_rows)
+    layer = (fused_temporal_layer if node_axis is None
+             else fused_temporal_layer_sharded)
+    att = layer(q, k_tab, v_tab, seeds.to(torch.int32),
+                seed_times.to(torch.int32), buf, **kw)
     return dense(params["o"], att.reshape(-1, d_model))
 
 

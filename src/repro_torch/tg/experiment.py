@@ -20,8 +20,12 @@ every quadrant on ``device`` (``"cuda"`` by default), with
 ``run`` compiles, trains through ``TrainLoop`` and evaluates. An
 ``EventStore`` passed as ``data``, or the ``MmapStore`` at
 ``DataSpec.storage``, backs the stream with the store's columns
-(``DGData.from_store``) and runs the event pipelines out-of-core. Data
-sharding raises ``NotImplementedError`` until the multi-GPU slice lands.
+(``DGData.from_store``) and runs the event pipelines out-of-core.
+``SamplerSpec.shards`` / ``mesh_axis`` / ``partition`` and
+``TrainSpec.data_shards`` reach ``CTDGLinkPipeline``, whose meshes span the
+initialized world's ranks (``repro_torch.launch.mesh.init_distributed``;
+``docs/sharding.md``); the snapshot and node pipelines ignore
+``data_shards``, as the reference's do.
 """
 
 from __future__ import annotations
@@ -111,9 +115,6 @@ class Experiment:
         """
         resolve_device(device)
         d, m, t = self.data, self.model, self.train
-        if t.data_shards > 1:
-            raise NotImplementedError(
-                "data sharding is a later slice of the port (ROADMAP A5)")
         store = self._store(data)
         if store is not None:
             data = store.to_data()
@@ -148,7 +149,8 @@ class Experiment:
             eval_negatives=t.eval_negatives, seed=t.seed,
             model_kwargs=dict(m.kwargs), sampler_spec=self.sampler,
             val_ratio=d.val_ratio, test_ratio=d.test_ratio,
-            store=store, telemetry=tel, device=device,
+            data_shards=t.data_shards, store=store, telemetry=tel,
+            device=device,
         )
 
     def _store(self, data=None):

@@ -11,9 +11,8 @@ one experiment blob reads in both packages:
   ``ModelSpec``   — *what model*: a zoo name plus its config kwargs.
   ``TrainSpec``   — *how to train*: optimizer, epochs, cadences.
 
-Fields the port does not carry yet (the mesh and data sharding) keep their
-place so blobs round-trip; ``tg.Experiment.compile`` raises
-``NotImplementedError`` when one is set.
+Every field reaches the pipelines, the mesh fields (``SamplerSpec.shards``,
+``mesh_axis``, ``partition``, ``TrainSpec.data_shards``) included.
 """
 
 from __future__ import annotations
@@ -123,8 +122,10 @@ class SamplerSpec(_SpecBase):
     and does not read it. ``checkpoint_adjacency`` (the uniform samplers'
     O(E) CSR in their ``state_dict``, or only the draw counter), ``shards``,
     ``mesh_axis`` and ``partition`` are the reference's uniform-sampler and
-    mesh options. The port runs both kinds, on the host (the default) or
-    with ``device=True``, on one device; ``shards`` raises.
+    mesh options: ``shards`` node-shards the device sampler over that many
+    ranks (``mesh_axis`` names the 1-D mesh's axis; ``partition`` "rows" or
+    "degree" places the uniform CSR's cuts). The port runs both kinds, on
+    the host (the default) or with ``device=True``.
     """
 
     kind: str = "recency"
@@ -185,8 +186,9 @@ class TrainSpec(_SpecBase):
     The port reads every field: ``lr``, ``epochs``, ``batch_size`` (event
     stream), ``num_negatives``, ``compiled`` and ``chunk_size`` (snapshots),
     ``eval_negatives``, ``seed``, the eval and checkpoint cadences and
-    ``telemetry`` (a JSONL path); ``data_shards > 1`` (the reference's 2-D
-    mesh) makes ``Experiment.compile`` raise.
+    ``telemetry`` (a JSONL path); ``data_shards > 1`` runs the event
+    pipeline's 2-D ``("data", "nodes")`` mesh step over
+    ``data_shards * (SamplerSpec.shards or 1)`` ranks.
     """
 
     lr: Optional[float] = None

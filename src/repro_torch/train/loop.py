@@ -3,7 +3,8 @@
   * ``CTDGLinkPipeline`` — the TGB link recipe over the recency or the
     uniform sampler (on the host, or on the device), TGAT (1 or 2 layers),
     TGN, GraphMixer, DyGFormer or TPNet and one-vs-many MRR, on one device
-    (``device="cuda"`` by default): ``train_epoch`` (masked BCE, backward
+    (``device="cuda"`` by default) or on a mesh of ranks (node-sharded
+    samplers, data-sharded steps): ``train_epoch`` (masked BCE, backward
     through the attention kernels' backward kernels where the model has
     them, AdamW), ``evaluate(split)`` and checkpoints, with TGN's memory
     and TPNet's walk features threaded through as ``model_state``,
@@ -38,6 +39,7 @@ Pipeline surface (duck-typed, consumed by ``TrainLoop``):
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -57,11 +59,30 @@ from repro_torch.core import (
     snapshot_tensor,
 )
 from repro_torch.core.batch import Batch
-from repro_torch.core.tg_hooks import UniformNeighborHook, stage_batch
+from repro_torch.core.tg_hooks import (
+    DeviceRecencyNeighborHook,
+    UniformNeighborHook,
+    stage_batch,
+)
 from repro_torch.device import resolve_device
+import torch.distributed as dist
+
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.sharding import (
+    all_reduce_flat,
+    all_reduce_tree,
+    axis_group,
+    axis_index,
+    make_2d_mesh,
+    make_node_mesh,
+    sync_state_masked_psum,
+)
 from repro_torch.models.tg import dygformer, graphmixer, snapshot, tgat, tgn, tpnet
-from repro_torch.models.tg.common import bce_link_loss, link_decoder
+from repro_torch.models.tg.common import (
+    bce_link_loss,
+    bce_link_loss_parts,
+    link_decoder,
+)
 from repro_torch.obs import MemorySink, Telemetry
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.tg.specs import SamplerSpec
@@ -290,15 +311,14 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     "graphmixer", "dygformer" or "tpnet" (which samples no neighbors: its
     recipe runs with k = 1, as the reference's), over
     ``SamplerSpec(kind="recency")`` or ``kind="uniform"``, on the host (the
-    default, as in the reference) or with ``device=True``; ``shards``
-    raises ``NotImplementedError``. The uniform hooks' adjacency is built
-    once over the full stream at construction (the strict ``t < query_t``
-    filter keeps it leak-free). ``store`` (a ``repro_torch.storage.
-    EventStore`` whose columns back ``data``, e.g. ``data =
-    store.to_data()``) runs the stream out-of-core: the uniform adjacency
-    comes from the streaming two-pass CSR, and the loader releases the
-    store's pages after every batch (``storage/windows_released``).
-    Parameters are leaf tensors with
+    default, as in the reference) or with ``device=True``. The uniform
+    hooks' adjacency is built once over the full stream at construction
+    (the strict ``t < query_t`` filter keeps it leak-free). ``store`` (a
+    ``repro_torch.storage.EventStore`` whose columns back ``data``, e.g.
+    ``data = store.to_data()``) runs the stream out-of-core: the uniform
+    adjacency comes from the streaming two-pass CSR, and the loader
+    releases the store's pages after every batch
+    (``storage/windows_released``). Parameters are leaf tensors with
     ``requires_grad``, from the port's seeded init (``torch.Generator``
     seeded with ``seed``) or from ``load_params`` (e.g. the reference's, via
     ``repro_torch.convert.params_from_jax``); the AdamW state (``lr``,
@@ -313,6 +333,29 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     plain version of that path, ``False`` the classic path. ``telemetry``
     (a ``repro_torch.obs.Telemetry``) instruments the epochs, steps and the
     loader.
+
+    **Meshes** (``docs/sharding.md``; every rank of an initialized world
+    builds the same pipeline on its own ``device`` and sees the same
+    batches). ``SamplerSpec.shards`` alone node-shards the device sampler
+    over a 1-D mesh (``make_node_mesh``) and runs the model step replicated
+    on every rank. ``data_shards > 1``, or ``shards`` with the recency
+    buffer exposed to TGAT/TGN, runs the 2-D ``("data", "nodes")`` step
+    (``make_2d_mesh(data_shards, shards or 1)``): each data coordinate
+    takes its contiguous ``B / data_shards`` sub-stream of the batch (the
+    seed-aligned tensors through ``_seed_perm``), the loss is
+    ``local_sum / all_reduce(den)`` over the data group, the gradients are
+    summed over the data group only, TGN's new memory goes through the
+    masked mean (``sync_state_masked_psum``), the AdamW update runs
+    replicated, and the fused layer runs shard-aware over each rank's
+    buffer block (``fused_temporal_layer_sharded`` over the node group).
+    Under a mesh the buffer is exposed when ``SamplerSpec.expose_buffer``
+    says so, or (left ``None``) when the fused path can engage: ``fused``
+    given, or a CUDA device, where it is the default. Refused as in the
+    reference, each with a ``ValueError``: ``data_shards > 1`` without
+    ``device=True``, a batch size that ``data_shards`` does not divide, and
+    TPNet with ``data_shards > 1``. Checkpoints are mesh-agnostic: the
+    sampler state is canonical and the parameters replicated; rank 0
+    writes, every rank restores.
     """
 
     def __init__(
@@ -332,6 +375,7 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         store=None,
         telemetry: Optional[Telemetry] = None,
         device="cuda",
+        data_shards: int = 1,
     ):
         if model_name not in CTDG_LINK_MODELS:
             raise ValueError(f"unknown CTDG model {model_name!r}")
@@ -340,11 +384,24 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                 f"fused= applies to the TGAT/TGN fused attention path; "
                 f"{model_name!r} has no fused twin")
         spec = sampler_spec or SamplerSpec(k=k)
-        if spec.shards:
-            raise NotImplementedError(
-                "the port's pipeline runs its sampler on one device; "
-                "mesh-sharded samplers (SamplerSpec.shards) wait for the "
-                "multi-GPU slice (ROADMAP A5)")
+        self.data_shards = int(data_shards)
+        if self.data_shards < 1:
+            raise ValueError("data_shards must be a positive integer")
+        if self.data_shards > 1:
+            if not spec.device:
+                raise ValueError(
+                    "data_shards > 1 requires SamplerSpec(device=True): the "
+                    "2-D mesh step assumes device-staged batches and "
+                    "mesh-placed sampler state (docs/sharding.md)")
+            if batch_size % self.data_shards:
+                raise ValueError(
+                    f"batch_size {batch_size} must be divisible by "
+                    f"data_shards {self.data_shards} (each data shard takes "
+                    f"a contiguous time-ordered sub-stream of the batch)")
+            if model_name == "tpnet":
+                raise ValueError(
+                    "data_shards > 1 supports tgat/tgn/graphmixer/dygformer;"
+                    " tpnet's sketch state has no masked-psum sync recipe")
         self.device = resolve_device(device)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.model_name = model_name
@@ -374,10 +431,15 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                     else 1)
         if spec.num_hops is not None:
             num_hops = spec.num_hops
-        # Only TGAT and TGN read the packed buffer.
+        # Only TGAT and TGN read the packed buffer; under a mesh only the
+        # shard-aware fused layer can, so it is exposed when that path can
+        # engage (an explicit fused=, or CUDA, where it is the default).
         expose = spec.expose_buffer
         if expose is None and model_name not in _FUSED_MODELS:
             expose = False
+        if expose is None and (spec.shards or self.data_shards > 1):
+            expose = bool(fused) or self.device.type == "cuda"
+        self._init_mesh(spec, expose)
         self.manager = RecipeRegistry.build(
             RECIPE_TGB_LINK,
             num_nodes=n,
@@ -385,7 +447,11 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                              k=1 if model_name == "tpnet" else self.cfg.k,
                              num_hops=num_hops, device=spec.device,
                              checkpoint_adjacency=spec.checkpoint_adjacency,
-                             expose_buffer=expose),
+                             expose_buffer=expose, shards=spec.shards,
+                             mesh_axis=spec.mesh_axis,
+                             partition=spec.partition),
+            mesh=self._mesh,
+            mesh_axis=self._recipe_axis,
             batch_size=batch_size,
             eval_negatives=eval_negatives,
             # Full-stream features: sampled edge ids are global event
@@ -403,8 +469,38 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
             else:
                 hook.build(data.src, data.dst, data.edge_t,
                            np.arange(len(data.src), dtype=np.int64))
+        # Node rows per shard of the sharded packed buffer: the
+        # ``rows_per_shard`` the 2-D step hands the shard-aware layer.
+        self._buf_rows = None
+        if self._node_group is not None:
+            for hook in self.manager.hooks():
+                if isinstance(hook, DeviceRecencyNeighborHook):
+                    self._buf_rows = hook.sampler.rows_per_shard
         self.opt_cfg = AdamWConfig(lr=1e-4 if lr is None else lr)
         self.opt_state = adamw_init(self.params)
+
+    def _init_mesh(self, spec: SamplerSpec, expose) -> None:
+        """The pipeline's mesh: the 2-D ``("data", "nodes")`` mesh when the
+        step is data-sharded or reads a sharded buffer, the 1-D node mesh
+        for ``shards`` alone, none otherwise."""
+        self._mesh = None
+        self._data_group = self._node_group = None
+        self._data_index = 0
+        self._recipe_axis = spec.mesh_axis
+        self._use_2d = self.data_shards > 1 or bool(
+            spec.shards and expose and spec.kind == "recency"
+            and self.model_name in _FUSED_MODELS)
+        self._perms: Dict[Tuple[int, int], torch.Tensor] = {}
+        if self._use_2d:
+            self._mesh = make_2d_mesh(self.data_shards, spec.shards or 1,
+                                      device_type=self.device.type)
+            self._recipe_axis = "nodes"
+            self._data_group = axis_group(self._mesh, "data")
+            self._node_group = axis_group(self._mesh, "nodes")
+            self._data_index = axis_index(self._mesh, "data")
+        elif spec.shards:
+            self._mesh = make_node_mesh(spec.shards, spec.mesh_axis,
+                                        device_type=self.device.type)
 
     def _init_state(self):
         """A stateful model's state at the start of an epoch, on the
@@ -450,17 +546,23 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
                 staged = stage_batch(batch, self.device)
             yield staged
 
-    def _scores(self, batch):
-        """``((pos, neg), new_state)``: the link logits of ``batch`` and the
-        model state after it (``None`` for a stateless model; a stateful
-        model's new state carries no autograd graph)."""
-        kw = {"fused": self.fused} if self.model_name in _FUSED_MODELS else {}
+    def _scores(self, batch, batch_size: Optional[int] = None):
+        """``((pos, neg), new_state)``: the link logits of ``batch`` (of
+        ``batch_size`` events, default the pipeline's) and the model state
+        after it (``None`` for a stateless model; a stateful model's new
+        state carries no autograd graph). A batch carrying a node-sharded
+        buffer block runs the shard-aware fused layer."""
+        B = self.batch_size if batch_size is None else batch_size
+        kw = {}
+        if self.model_name in _FUSED_MODELS:
+            kw["fused"] = self.fused
+            if "nbr_buf" in batch and self._buf_rows is not None:
+                kw.update(node_axis=self._node_group, buf_rows=self._buf_rows)
         if self.stateful:
             return self._model.link_scores(
-                self.params, self.cfg, self.model_state, batch,
-                self.batch_size, **kw)
-        return self._model.link_scores(self.params, self.cfg, batch,
-                                       self.batch_size, **kw), None
+                self.params, self.cfg, self.model_state, batch, B, **kw)
+        return self._model.link_scores(self.params, self.cfg, batch, B,
+                                       **kw), None
 
     def _loss_and_state(self, batch):
         """The masked BCE link loss of ``batch`` (forward pass) and the
@@ -477,6 +579,8 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         state after it (the reference's step: the state is an input, the
         new state an auxiliary output, so no gradient reaches it); returns
         the loss as a device scalar, so nothing is read back to the host."""
+        if self._use_2d:
+            return self._train_step_2d(batch)
         loss, new_state = self._loss_and_state(batch)
         self._update(self._grads(loss))
         if self.stateful:
@@ -485,6 +589,8 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
 
     def _eval_step(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """The link logits of ``batch``; a stateful model's state moves on."""
+        if self._use_2d:
+            return self._eval_step_2d(batch)
         with torch.no_grad():
             logits, new_state = self._scores(batch)
         if self.stateful:
@@ -494,11 +600,140 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     def _advance(self, batch) -> None:
         """Move a stateful model's state past ``batch`` without scoring it
         (the warm passes): the state the reference's eval step returns, whose
-        scores it throws away."""
-        if self.stateful:
-            with torch.no_grad():
+        scores it throws away (on the 2-D mesh: each data shard's update of
+        its sub-stream, then the masked mean)."""
+        if not self.stateful:
+            return
+        with torch.no_grad():
+            if self._use_2d:
+                local = self._local(batch)
+                new = self._model.update_memory(self.params, self.cfg,
+                                                self.model_state, local)
+                self.model_state = self._synced(new, local)
+            else:
                 self.model_state = self._model.update_memory(
                     self.params, self.cfg, self.model_state, batch)
+
+    # -- the 2-D ("data", "nodes") mesh step (docs/sharding.md) -----------
+    def _seed_perm(self, S: int) -> np.ndarray:
+        """Shard-major permutation of the stacked seed axis ``[src (B) |
+        dst (B) | neg (B * Nn)]``: each contiguous ``1 / data_shards``
+        slice of the permuted rows is that shard's own ``[src_l | dst_l |
+        neg_l]`` stack at batch size ``B / data_shards`` (the reference's
+        static permutation)."""
+        B, ds = self.batch_size, self.data_shards
+        nn = (S - 2 * B) // B
+        bl = B // ds
+        parts = []
+        for d in range(ds):
+            lo, hi = d * bl, (d + 1) * bl
+            parts.append(np.arange(lo, hi))
+            parts.append(B + np.arange(lo, hi))
+            if nn:
+                parts.append(2 * B + np.arange(lo * nn, hi * nn))
+        return np.concatenate(parts).astype(np.int64)
+
+    def _local_rows(self, S: int, m: int) -> torch.Tensor:
+        """The rows of a seed-aligned ``(S * m, ...)`` tensor that this data
+        shard takes (``m`` rows per seed: 1, or K for the hop-2 tensors)."""
+        key = (S, m)
+        if key not in self._perms:
+            perm = self._seed_perm(S)
+            if m > 1:
+                perm = (perm[:, None] * m + np.arange(m)).reshape(-1)
+            n = perm.shape[0] // self.data_shards
+            d = self._data_index
+            self._perms[key] = torch.as_tensor(perm[d * n:(d + 1) * n],
+                                               device=self.device)
+        return self._perms[key]
+
+    def _local(self, batch) -> Dict[str, Any]:
+        """This data shard's sub-batch: event-aligned ``(B, ...)`` tensors
+        sliced to its contiguous sub-stream, seed-aligned ``(S, ...)`` and
+        frontier-aligned ``(S * K, ...)`` ones through the shard-major
+        permutation; the buffer block, the edge table and anything else
+        kept whole (the reference's routing by leading dimension)."""
+        B = self.batch_size
+        bl = B // self.data_shards
+        d = self._data_index
+        S = int(batch["seed_nodes"].shape[0]) if "seed_nodes" in batch else -1
+        out = {}
+        for key in batch.keys():
+            v = batch[key]
+            shape = tuple(v.shape) if isinstance(v, torch.Tensor) else ()
+            if key in ("nbr_buf", "edge_feat_table") or not shape:
+                out[key] = v
+            elif shape[0] == B:
+                out[key] = v[d * bl:(d + 1) * bl]
+            elif S > 0 and shape[0] % S == 0:
+                out[key] = v[self._local_rows(S, shape[0] // S)]
+            else:
+                out[key] = v
+        return out
+
+    def _synced(self, new_state, local):
+        """TGN's new memory after the DistTGL masked mean over the data
+        group: the rows this shard's valid events touched."""
+        mask = local["batch_mask"].to(torch.bool)
+        nodes = torch.cat([local["src"], local["dst"]]).long()
+        touched = torch.zeros(self.cfg.num_nodes, dtype=torch.bool,
+                              device=self.device)
+        touched[nodes[torch.cat([mask, mask])]] = True
+        return sync_state_masked_psum(new_state, touched, self._data_group)
+
+    def _step_2d(self, batch):
+        """The 2-D step without its update: ``(loss, grads, new_state)``.
+        This shard's ``local_sum / D``, ``D`` the all-reduced term count
+        (parameter-independent), is differentiated; its gradients and loss
+        sum are all-reduced over the data group in one call, so every rank
+        holds the one-device gradient; a stateful model's new state comes
+        back through the masked mean (``None`` otherwise)."""
+        local = self._local(batch)
+        (pos, neg), new_state = self._scores(
+            local, self.batch_size // self.data_shards)
+        num, den = bce_link_loss_parts(pos, neg, local["batch_mask"])
+        denom = den.detach().reshape(1).clone()
+        dist.all_reduce(denom, group=self._data_group)
+        denom = torch.clamp(denom[0], min=1.0)
+        grads = self._grads(num / denom)
+        summed = all_reduce_tree({"grads": grads,
+                                  "num": num.detach().reshape(1)},
+                                 self._data_group)
+        if self.stateful:
+            new_state = self._synced(new_state, local)
+        return summed["num"][0] / denom, summed["grads"], new_state
+
+    def _train_step_2d(self, batch) -> torch.Tensor:
+        """``_step_2d``, then the replicated AdamW update."""
+        loss, grads, new_state = self._step_2d(batch)
+        if self.stateful:
+            self.model_state = new_state
+        self._update(grads)
+        return loss
+
+    def _eval_step_2d(self, batch):
+        """The 2-D eval step: this shard's logits placed in its rows of
+        zero-filled ``(B,)`` / ``(B, Nn)`` tensors, summed over the data
+        group (one owner per event: exact), so every rank has the batch's
+        logits in event order; TGN's memory synced as in training."""
+        local = self._local(batch)
+        B, d = self.batch_size, self._data_index
+        bl = B // self.data_shards
+        with torch.no_grad():
+            (pos, neg), new_state = self._scores(local, bl)
+            full_pos = torch.zeros((B,) + tuple(pos.shape[1:]),
+                                   dtype=pos.dtype, device=pos.device)
+            full_pos[d * bl:(d + 1) * bl] = pos
+            parts = [full_pos]
+            if neg is not None:
+                full_neg = torch.zeros((B,) + tuple(neg.shape[1:]),
+                                       dtype=neg.dtype, device=neg.device)
+                full_neg[d * bl:(d + 1) * bl] = neg
+                parts.append(full_neg)
+            summed = all_reduce_flat(parts, self._data_group)
+            if self.stateful:
+                self.model_state = self._synced(new_state, local)
+        return summed[0], (summed[1] if neg is not None else None)
 
     def reset_epoch_state(self) -> None:
         """Clear hook/sampler state (and the model state) for an epoch."""
@@ -511,7 +746,9 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
     # parameters and optimizer state, so a restored run resumes mid-stream
     # with warm neighbor state.
     def save_checkpoint(self, ckpt_dir: str, step: int) -> str:
-        """Write a checkpoint (atomic step directory). Returns its path."""
+        """Write a checkpoint (atomic step directory). Returns its path.
+        On a mesh every rank calls it (the sharded samplers assemble their
+        canonical state together), rank 0 writes, and all wait for it."""
         tree = {
             "params": self.params,
             "opt_state": self.opt_state,
@@ -519,12 +756,18 @@ class CTDGLinkPipeline(_ParamsAndOptimizer):
         }
         if self.stateful:
             tree["model_state"] = self.model_state
-        return save_bundle(ckpt_dir, step, tree, self.model_name)
+        path = os.path.join(ckpt_dir, f"ckpt_{step}")
+        if self._mesh is None or dist.get_rank() == 0:
+            path = save_bundle(ckpt_dir, step, tree, self.model_name)
+        if self._mesh is not None:
+            dist.barrier()
+        return path
 
     def restore_checkpoint(self, ckpt_dir: str,
                            step: Optional[int] = None) -> int:
         """Restore params, optimizer, hook (and model) state (written by
-        either package); returns the step."""
+        either package, under any mesh shape or none); returns the step.
+        On a mesh every rank restores and keeps its own sampler block."""
         target = {"params": self.params, "opt_state": self.opt_state}
         if self.stateful:
             target["model_state"] = self.model_state

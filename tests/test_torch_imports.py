@@ -67,7 +67,11 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.storage.windows", "repro_torch.storage.csr",
             "repro_torch.models.tg.edgebank", "repro_torch.serve.faults",
             "repro_torch.serve.graph_service", "repro_torch.obs.profiler",
-            "repro_torch.utils", "repro_torch.utils.prof"} <= set(names)
+            "repro_torch.utils", "repro_torch.utils.prof",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.dp_trainer",
+            "repro_torch.launch.mesh"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -196,3 +200,35 @@ def test_port_public_api_docstrings(name):
                         if not k.startswith("_") and inspect.isfunction(v)
                         and not inspect.getdoc(v)]
     assert missing == []
+
+
+def test_init_distributed_takes_the_named_backend_and_the_local_card(monkeypatch):
+    """``init_distributed`` reads the launcher's environment, makes the
+    rank's card ``cuda:{LOCAL_RANK}`` current by default (or the device
+    the caller names), and starts the group with the backend it is given;
+    without a GPU the CUDA default raises."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set", d)))
+    for key, value in {"RANK": "5", "WORLD_SIZE": "8", "LOCAL_RANK": "3"}.items():
+        monkeypatch.setenv(key, value)
+    assert mesh.init_distributed("nccl") == torch.device("cuda", 3)
+    assert calls == [("set", torch.device("cuda", 3)),
+                     ("nccl", {"init_method": "env://", "rank": 5,
+                               "world_size": 8})]
+    calls.clear()
+    assert mesh.init_distributed("gloo", device="cuda:0") == torch.device("cuda", 0)
+    assert calls[-1][0] == "gloo" and calls[0] == ("set", torch.device("cuda", 0))
+    calls.clear()
+    assert mesh.init_distributed("gloo", device="cpu") == torch.device("cpu")
+    assert [c[0] for c in calls] == ["gloo"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.init_distributed("nccl")

@@ -85,8 +85,7 @@ def test_experiment_compiles_the_link_quadrant_on_cpu():
     mrr, _ = pipe.evaluate("test")
     assert 0.0 < mrr <= 1.0
     assert Experiment.from_json(exp.to_json()) == exp
-    # The rest of the CTDG zoo compiles; a mesh-sharded sampler still
-    # refuses (the multi-GPU slice).
+    # The rest of the CTDG zoo compiles.
     for name, kw in (("graphmixer", {"d_model": 16, "d_time": 8}),
                      ("dygformer", {"d_model": 16, "d_time": 8, "d_cooc": 4}),
                      ("tpnet", {"d_rp": 8, "d_hidden": 16})):
@@ -95,9 +94,43 @@ def test_experiment_compiles_the_link_quadrant_on_cpu():
                           train=TrainSpec(batch_size=100, eval_negatives=5)
                           ).compile(device="cpu")
         assert pipe.model_name == name and pipe.cfg.num_nodes == 80
-    with pytest.raises(NotImplementedError, match="A5"):
-        Experiment(sampler=SamplerSpec(kind="uniform", device=True, shards=2)
-                   ).compile(device="cpu")
+    # A mesh-sharded uniform sampler compiles over an initialized world:
+    # here one gloo rank, so one shard holding every node (the multi-rank
+    # runs are tests/test_torch_{sharded_sampler,distributed}.py); two
+    # shards ask for ranks this world lacks and are refused.
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    with pytest.MonkeyPatch.context() as mp:
+        for key, value in env.items():
+            mp.setenv(key, value)
+        assert init_distributed("gloo", device="cpu") == torch.device("cpu")
+    try:
+        sharded = Experiment(data=DataSpec("tiny"),
+                             model=ModelSpec("tgat", {"num_layers": 1}),
+                             sampler=SamplerSpec(kind="uniform", k=4, device=True,
+                                                 shards=1, partition="degree"),
+                             train=TrainSpec(batch_size=100, eval_negatives=5))
+        pipe = sharded.compile(device="cpu")
+        hooks = [h for h in pipe.manager.hooks() if hasattr(h, "sampler")]
+        assert hooks[0].sampler._mesh.mesh_dim_names == ("data",)
+        assert hooks[0].sampler.partition == "degree"
+        mrr, _ = pipe.evaluate("test")
+        assert 0.0 < mrr <= 1.0
+        with pytest.raises(ValueError, match="world holds 1"):
+            Experiment(data=DataSpec("tiny"),
+                       sampler=SamplerSpec(kind="uniform", device=True, shards=2)
+                       ).compile(device="cpu")
+    finally:
+        dist.destroy_process_group()
     # With snapshots the quadrant is DTDG: an event-stream model is refused
     # (tests/test_torch_dtdg_pipeline.py compiles the snapshot models).
     with pytest.raises(ValueError, match="not a snapshot"):

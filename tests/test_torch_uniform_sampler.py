@@ -17,8 +17,8 @@ Held:
   ``state_dict`` interchange; uniform draws (a chi-square test at a fixed
   seed); its int64 key on a graph where the reference device twin's int32
   key refuses (ROADMAP C);
-* the store-built forms build the same CSR as ``build``; ``shards``, and
-  a store-backed experiment over data shards, are refused (ROADMAP A5);
+* the store-built forms build the same CSR as ``build``; the reference's
+  own refusals of data shards stay (a host sampler, and TPNet);
 * ``tiny`` pipelines of 2-layer TGAT (the reference's default; the classic
   path) over each uniform sampler: on the host sampler val MRR within 1e-4
   of the reference pipeline's; on the device sampler (whose draws torch
@@ -39,7 +39,7 @@ from repro.data import generate as jax_generate
 from repro.tg.specs import SamplerSpec as JaxSamplerSpec
 from repro.train.loop import CTDGLinkPipeline as JaxPipeline
 from repro.train.metrics import mrr as jax_mrr
-from repro_torch.core import EVAL_KEY, TRAIN_KEY, RECIPE_TGB_LINK, RecipeRegistry
+from repro_torch.core import EVAL_KEY, TRAIN_KEY
 from repro_torch.core.device_uniform import DeviceUniformSampler
 from repro_torch.core.sampler import UniformSampler
 from repro_torch.core.tg_hooks import DeviceUniformNeighborHook, UniformNeighborHook
@@ -236,22 +236,27 @@ def test_store_builds_equal_build():
 
 
 def test_store_builds_and_shards_are_refused():
-    """What stays refused beside the store builds (which now build,
-    ``test_store_builds_equal_build``): a mesh-sharded uniform sampler, and
-    a store-backed experiment over data shards (ROADMAP A5)."""
+    """What stays refused beside the store builds (which build,
+    ``test_store_builds_equal_build``) and the mesh-sharded samplers (which
+    run, ``tests/test_torch_sharded_sampler.py``): the reference's own
+    refusals of data shards, each a ``ValueError`` as there — over a host
+    sampler (a store-backed experiment here), and with TPNet. They come
+    before any mesh is asked for."""
     from repro_torch.storage import InMemoryStore
     from repro_torch.tg import DataSpec, Experiment, ModelSpec, TrainSpec
 
-    with pytest.raises(NotImplementedError, match="A5"):
-        RecipeRegistry.build(RECIPE_TGB_LINK, num_nodes=4, device="cpu",
-                             spec=SamplerSpec(kind="uniform", device=True, shards=2))
     src, dst, _, n = _stream(seed=4)
     store = InMemoryStore(src, dst, 3 * np.arange(len(src)), num_nodes=n)
     exp = Experiment(data=DataSpec("tiny"), model=ModelSpec("tgat", TGAT),
                      sampler=SamplerSpec(kind="uniform", k=2),
                      train=TrainSpec(batch_size=64, data_shards=2))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="requires SamplerSpec\\(device=True\\)"):
         exp.compile(data=store, device="cpu")
+    tpnet = Experiment(data=DataSpec("tiny"), model=ModelSpec("tpnet"),
+                       sampler=SamplerSpec(kind="uniform", k=2, device=True),
+                       train=TrainSpec(batch_size=64, data_shards=2))
+    with pytest.raises(ValueError, match="tpnet"):
+        tpnet.compile(device="cpu")
 
 
 @pytest.fixture(scope="module")
