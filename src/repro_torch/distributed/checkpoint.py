@@ -20,6 +20,8 @@ helpers) for nested dicts and tuples of tensors and numpy arrays:
     place afterwards (the port's AdamW steps in place) is saved as it was.
 
 Restored leaves are host numpy arrays; callers move them to their device.
+numpy has no bfloat16, so a bfloat16 tensor (the LM's parameters) is
+written as float32, which holds it exactly; the caller casts it back.
 Pipeline checkpoints are mesh-agnostic without help from here: sampler
 state is saved in its canonical host layout and parameters are replicated,
 so every rank restores the same bundle and repacks it for its own mesh
@@ -63,8 +65,13 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return _numpy_of(leaf.detach().cpu())
     return np.asarray(leaf)
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bfloat16 (which numpy lacks) as float32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _fsync_path(path: str) -> None:
@@ -243,7 +250,7 @@ def _snapshot(tree):
     if tree is None:
         return None
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True).numpy()
+        return _numpy_of(tree.detach().to("cpu", copy=True))
     return np.array(tree, copy=True)
 
 

@@ -1,5 +1,6 @@
-// Online-softmax GQA attention (causal with offset, sliding window), forward
-// only, for Hopper (sm_90a).
+// Online-softmax GQA attention (causal with offset, sliding window), forward,
+// for Hopper (sm_90a). Its gradient is K5b (flash_attention_bwd.cu); the
+// helpers both share are in flash_attention.cuh.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
 // `flash_attention_kernel` (Pallas body `_flash_kernel`):
@@ -13,7 +14,10 @@
 // reads kv head h / (H / Hk), the reference's `kv_map`), read through their
 // strides, so the model's (B, S, H, D) tensors go in without a transposed
 // copy. It is every prefill attention of the LM path (hymba: window 1024,
-// D = 64, 25 query over 5 kv heads; qwen3: causal, D = 128, 16 over 8).
+// D = 64, 25 query over 5 kv heads; qwen3: causal, D = 128, 16 over 8) and
+// every attention forward of LM training. Asked for it (`lse` not null), it
+// also writes each row's float32 log-sum-exp of its scaled visible scores,
+// (B, H, Sq): the one statistic K5b needs to recompute the probabilities.
 //
 // The TPU kernel walks every kv block of a q block in a sequential grid axis
 // and masks; here a block walks only the kv tiles that the causal bound and
@@ -78,14 +82,9 @@
 // scores and columns 4 cg + 64 jj + e of the output; the running max is a
 // 4-step xor shuffle over a half-warp, the sum is reduced once at the end.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   int B, H, Hk, Sq, Skv, D, causal, window;
@@ -94,74 +93,15 @@ struct Params {
   float scale;
 };
 
-// The kv tiles [t_beg, t_end) of `block_k` keys that rows q0 .. q0 +
-// block_q - 1 can see (none is wholly masked for every row of the tile).
-__device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
-                                              int block_q, int block_k,
-                                              int& t_beg, int& t_end) {
-  const int off = p.Skv - p.Sq;
-  const int first = q0 + off;                             // first row's position
-  const int last = min(q0 + block_q, p.Sq) - 1 + off;    // last row's position
-  const int kend = p.causal ? min(p.Skv, last + 1) : p.Skv;
-  const int kbeg = p.window > 0 ? max(0, first - p.window + 1) : 0;
-  t_beg = kbeg / block_k;
-  t_end = (kend + block_k - 1) / block_k;
-}
-
-// Whether some (row, key) pair of the q tile at q0 and the kv tile at k0 is
-// masked (rows past Sq count as rows: their outputs are never stored).
-__device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0, int k0,
-                                                int block_q, int block_k) {
-  const int off = p.Skv - p.Sq;
-  return k0 + block_k > p.Skv || (p.causal && k0 + block_k - 1 > q0 + off) ||
-         (p.window > 0 && k0 <= q0 + block_q - 1 + off - p.window);
-}
-
 // ===========================================================================
 // float32: the CUDA-core kernel
 // ===========================================================================
-constexpr int kTile = 64;      // q rows and keys per tile
-constexpr int kThreads = 256;
-constexpr int kLP = kTile + 4;  // padded row of the probability tile
-
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-// Rows row0 .. row0 + 63 of a (seq, D) slice with row stride `ss` into
-// dst[r * ld + c] times `mul`; rows at or past `rows` are zeros.
-__device__ __forceinline__ void load_tile(float* dst, const float* base,
-                                          long long ss, int row0, int rows,
-                                          int D, int ld, float mul) {
-  const int per_row = D / 4;
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int r = i / per_row;
-    const int c = (i - r * per_row) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < rows) load4(base + static_cast<long long>(row0 + r) * ss + c, v);
-    *reinterpret_cast<float4*>(dst + r * ld + c) =
-        make_float4(v[0] * mul, v[1] * mul, v[2] * mul, v[3] * mul);
-  }
-}
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // NJ4: float4 column groups a thread owns in the output (D <= 64 * NJ4).
 template <int NJ4>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           Params p) {
+                           float* __restrict__ lse, Params p) {
   extern __shared__ __align__(16) float smem[];
   const int ld = p.D + 4;
   float* qs = smem;                 // kTile x ld, pre-scaled q
@@ -281,9 +221,12 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   float* ob = o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / fmaxf(row_sum16(l[i]), 1e-30f);
+    const float sum = row_sum16(l[i]);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
     const int row = q0 + rg * 4 + i;
     if (row >= p.Sq) continue;
+    if (lse != nullptr && cg == 0)  // m is a max of the pre-scaled scores
+      lse[static_cast<long long>(bh) * p.Sq + row] = m[i] + logf(sum);
     float* orow = ob + static_cast<long long>(row) * p.o_ss;
 #pragma unroll
     for (int jj = 0; jj < NJ4; ++jj)
@@ -296,7 +239,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 template <int NJ4>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kTile * (p.D + 4) + kTile * kLP);
   static bool attr_set = false;  // the opt-in above 48 KB, once per instance
@@ -311,14 +254,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(p.B * p.H, (p.Sq + kTile - 1) / kTile);
   flash_attention_f32_kernel<NJ4><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), p);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ===========================================================================
 // bfloat16: the tensor-core kernel
 // ===========================================================================
-using bf16 = __nv_bfloat16;
 constexpr int kBM = 128;  // q rows per block
 constexpr int kBN = 64;   // keys per kv tile
 
@@ -333,72 +275,6 @@ constexpr int kBN = 64;   // keys per kv tile
 template <int kD> struct TcConfig;
 template <> struct TcConfig<64> { static constexpr int kMT = 2, kWarps = 4, kMinBlocks = 3; };
 template <> struct TcConfig<128> { static constexpr int kMT = 1, kWarps = 8, kMinBlocks = 2; };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-// 16 bytes from global to shared, or 16 zero bytes when !valid (src-size 0:
-// nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// 2^x by the SFU (relative error ~2^-22; results below 2^-126 flush to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// What rounding x to bf16 leaves out (exact in float32).
-__device__ __forceinline__ float bf16_rest(float x) {
-  return x - __bfloat162float(__float2bfloat16(x));
-}
-
-// Rows row0 .. row0 + nrows - 1, columns 0 .. D16 - 1 of a (seq, D) bf16
-// slice with row stride `ss`, into dst[r * LDS + c] by cp.async; rows at or
-// past `rows` and columns at or past D are zero-filled.
-template <int LDS, int kThreadsPerBlock>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
-                                                long long ss, int row0, int rows,
-                                                int nrows, int D, int D16) {
-  const int chunks = D16 / 8;  // 16-byte pieces of a row
-  for (int i = threadIdx.x; i < nrows * chunks; i += kThreadsPerBlock) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) * 8;
-    const bool valid = row0 + r < rows && c < D;
-    const bf16* src = valid ? base + static_cast<long long>(row0 + r) * ss + c : base;
-    cp_async16(smem_addr(dst + r * LDS + c), src, valid);
-  }
-}
 
 // One kv tile's online-softmax step on one m tile's S fragments (s[j]: keys
 // 8 j .. 8 j + 7 of the tile; entries 0, 1 in row g, 2, 3 in row g + 8),
@@ -454,16 +330,7 @@ __device__ __forceinline__ void softmax_step(const Params& p, float (*s)[4],
       l[e >> 1] += pr;
     }
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    pl[kk][0] = pack_bf16(bf16_rest(s[2 * kk][0]), bf16_rest(s[2 * kk][1]));
-    pl[kk][1] = pack_bf16(bf16_rest(s[2 * kk][2]), bf16_rest(s[2 * kk][3]));
-    pl[kk][2] = pack_bf16(bf16_rest(s[2 * kk + 1][0]), bf16_rest(s[2 * kk + 1][1]));
-    pl[kk][3] = pack_bf16(bf16_rest(s[2 * kk + 1][2]), bf16_rest(s[2 * kk + 1][3]));
-  }
+  for (int kk = 0; kk < kBN / 16; ++kk) to_a_frags(s, kk, pa[kk], pl[kk]);
 }
 
 // kD: 64 or 128, the largest D16 the instance takes (its register arrays).
@@ -471,7 +338,7 @@ template <int kD>
 __global__ void __launch_bounds__(32 * TcConfig<kD>::kWarps, TcConfig<kD>::kMinBlocks)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          Params p) {
+                          float* __restrict__ lse, Params p) {
   constexpr int kMT = TcConfig<kD>::kMT;
   constexpr int kThreadsPerBlock = 32 * TcConfig<kD>::kWarps;
   static_assert(16 * kMT * TcConfig<kD>::kWarps == kBM, "a block covers kBM rows");
@@ -609,6 +476,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       const float inv = 1.f / fmaxf(sum, 1e-30f);
       const int row = q0 + 16 * (kMT * warp + mt) + g + 8 * r;
       if (row >= p.Sq) continue;
+      if (lse != nullptr && t4 == 0)  // m is a max of the unscaled scores
+        lse[static_cast<long long>(bh) * p.Sq + row] = m[mt][r] * p.scale + logf(sum);
       bf16* orow = ob + static_cast<long long>(row) * p.o_ss;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -621,7 +490,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int kD>
-int launch_tc(const void* q, const void* k, const void* v, void* o,
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
               const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (kBM + 4 * kBN) * (kD + 8);
   static bool attr_set = false;  // the opt-in above 48 KB, once per instance
@@ -635,7 +504,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(p.B * p.H, (p.Sq + kBM - 1) / kBM);
   flash_attention_tc_kernel<kD><<<grid, 32 * TcConfig<kD>::kWarps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), p);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,7 +516,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 // aligned (the wrapper checks). Launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was taken).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int Hk,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Hk,
     int Sq, int Skv, int D, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
@@ -660,11 +529,12 @@ extern "C" int flash_attention_fwd(
                  q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                  o_sb, o_sh, o_ss, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   if (dtype == 0) {
-    return D <= 64 ? launch_f32<1>(q, k, v, o, p, s) : launch_f32<2>(q, k, v, o, p, s);
+    return D <= 64 ? launch_f32<1>(q, k, v, o, L, p, s) : launch_f32<2>(q, k, v, o, L, p, s);
   }
   if (dtype == 1) {
-    return D <= 64 ? launch_tc<64>(q, k, v, o, p, s) : launch_tc<128>(q, k, v, o, p, s);
+    return D <= 64 ? launch_tc<64>(q, k, v, o, L, p, s) : launch_tc<128>(q, k, v, o, L, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

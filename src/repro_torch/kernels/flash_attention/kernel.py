@@ -1,22 +1,34 @@
-"""ctypes binding and wrapper of the flash attention CUDA kernel (K5).
+"""ctypes bindings and wrappers of the flash attention CUDA kernels: K5, the
+forward, and K5b, its gradient.
 
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``repro.kernels.flash_attention.kernel.flash_attention_kernel``
 (``kernel.py:77`` of the reference): online-softmax GQA attention, causal
-with the offset ``Skv - Sq``, with an optional sliding window, forward only.
-It is bounded by operations (the two products per visible pair). bfloat16
+with the offset ``Skv - Sq``, with an optional sliding window (the TPU
+kernel's forward; its gradient is K5b, below). It is bounded by operations (the two products per visible pair). bfloat16
 inputs run on the tensor cores (``mma.sync`` bf16 -> float32, one block
 per (batch, head, 128-row q tile)); float32 inputs on the CUDA
 cores in float32 (one block per (batch, head, 64-row q tile)), a dispatch
 on dtype. Either walks only the kv tiles of 64 keys that the causal bound
 and the window leave visible (``kv_tile_range``) and evaluates the mask
 only in the tiles that need it (``tile_needs_mask``); the source's head
-comment says what the design does about its bound.
+comment says what the design does about its bound. Asked for it
+(``return_lse=True``), K5 also returns each row's float32 log-sum-exp.
+
+``csrc/flash_attention_bwd.cu`` (K5b) replaces no TPU kernel: the
+reference's LM differentiates its jnp blocked attention by autodiff. From
+q, k, v, K5's output and log-sum-exp and the output's cotangent it returns
+dq, dk and dv (dk and dv summed over each kv head's query heads) in three
+device launches (the row sums rowsum(dO * O), a dq pass over q tiles and a
+dk/dv pass over kv tiles, each kv tile walking the q tiles that can see it:
+``q_tile_range``) and no float atomics, so a second call gives the same
+bits. Tiles: ``BWD_TILES``.
 
 ``flash_attention_kernel`` checks device, dtype, shapes, strides and
 alignment, allocates its output with ``torch.empty``, launches on the
 current stream, raises on a CUDA error and adds one to
-``LAUNCHES["flash_attention"]`` per launch. It reads q, k and v through
+``LAUNCHES["flash_attention"]`` per launch; ``flash_attention_bwd_kernel``
+likewise, one ``LAUNCHES["flash_attention_bwd"]`` per call. It reads q, k and v through
 their strides in either layout: ``"bhsd"`` (the reference's kernel
 signature) or ``"bshd"`` (the model's tensors, no transposed copy).
 """
@@ -30,14 +42,19 @@ from pathlib import Path
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q rows, keys) of a block's tiles: the tensor-core kernel (bfloat16) and
 # the CUDA-core kernel (float32).
 TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
+# K5b's tiles: (a block's own rows, the walked tile). The dq pass owns q
+# rows and walks kv tiles; the dk/dv pass owns keys and walks q tiles.
+BWD_TILES = {torch.bfloat16: (64, 32), torch.float32: (64, 64)}
 _lib = None
+_lib_bwd = None
 
 
 def kv_tile_range(q0: int, Sq: int, Skv: int, causal: bool, window: int,
@@ -52,6 +69,21 @@ def kv_tile_range(q0: int, Sq: int, Skv: int, causal: bool, window: int,
     kend = min(Skv, last + 1) if causal else Skv
     kbeg = max(0, first - window + 1) if window > 0 else 0
     return kbeg // block_k, -(-kend // block_k)
+
+
+def q_tile_range(k0: int, Sq: int, Skv: int, causal: bool, window: int,
+                 block_k: int, block_q: int):
+    """The q tiles ``[t_beg, t_end)`` of ``block_q`` rows that can see some
+    key of ``k0 .. k0 + block_k - 1``: a mirror of the CUDA source's
+    ``q_tile_range``, the walk of K5b's dk/dv pass (the transpose of
+    ``kv_tile_range``). Key t is visible from row i when i >= t - off
+    (causal) and i < t - off + window (window), off = Skv - Sq."""
+    off = Skv - Sq
+    k_last = min(k0 + block_k, Skv) - 1
+    ibeg = max(0, k0 - off) if causal else 0
+    iend = min(Sq, k_last - off + window) if window > 0 else Sq
+    t_beg = ibeg // block_q
+    return t_beg, (-(-iend // block_q) if iend > ibeg else t_beg)
 
 
 def tile_needs_mask(q0: int, k0: int, Sq: int, Skv: int, causal: bool,
@@ -78,12 +110,29 @@ def _library():
         lib = _build.load(SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_fwd.argtypes = (
-            [p, p, p, p] + [i] * 6 + [ll] * 12 + [i, i, ctypes.c_float, i, p])
+            [p] * 5 + [i] * 6 + [ll] * 12 + [i, i, ctypes.c_float, i, p])
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _library_bwd():
+    global _lib_bwd
+    if _lib_bwd is None:
+        from repro_torch.kernels import _build
+
+        lib = _build.load(BWD_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd.argtypes = (
+            [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [i, i, ctypes.c_float, i, p])
+        lib.flash_attention_bwd.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
 
 
 def _bhs_strides(t: torch.Tensor, layout: str):
@@ -95,23 +144,12 @@ def _bhs_strides(t: torch.Tensor, layout: str):
     return (sb, s1, s2) if layout == "bhsd" else (sb, s2, s1)
 
 
-def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
-                           scale: float | None = None, layout: str = "bhsd"):
-    """Flash attention on the GPU (K5).
-
-    ``layout="bhsd"``: q (B, H, Sq, D), k and v (B, Hk, Skv, D);
-    ``layout="bshd"``: q (B, Sq, H, D), k and v (B, Skv, Hk, D). All three
-    float32 or all bfloat16 on one CUDA device, H % Hk == 0, D a multiple of
-    8 up to 128, unit stride along D, the other strides multiples of 8 and
-    16-byte aligned storage (any view of a contiguous tensor of such a shape
-    qualifies); Skv >= Sq when causal or windowed (every row then sees a
-    key). Returns a new tensor of q's shape, layout and dtype: the softmax
-    over the visible keys (scores scaled by 1/sqrt(D) unless ``scale`` is
-    given, float32 arithmetic).
-    """
+def _dims(q, k, v, causal: bool, window: int, layout: str):
+    """Check q, k and v against K5's contract; returns (B, H, Hk, Sq, Skv, D)
+    and their (batch, head, sequence) strides."""
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError(
-            "the flash attention kernel runs on CUDA tensors (use mode='ref' "
+            "the flash attention kernels run on CUDA tensors (use mode='ref' "
             "or 'auto' for the plain version)")
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -142,27 +180,105 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                          f"or windowed")
     if window < 0:
         raise ValueError(f"window={window} must be >= 0")
-    strides = []
-    for t in (q, k, v):
+    return (B, H, Hk, Sq, Skv, D), _strides((q, k, v), layout)
+
+
+def _strides(tensors, layout: str):
+    """The (batch, head, sequence) strides of each tensor, flat, after
+    checking K5's alignment rules."""
+    out = []
+    for t in tensors:
         st = _bhs_strides(t, layout)
         if any(s % 8 for s in st) or t.data_ptr() % 16:
-            raise ValueError("q, k and v need strides that are multiples of 8 "
-                             "and 16-byte aligned storage")
-        strides += list(st)
+            raise ValueError("the flash attention kernels need strides that are "
+                             "multiples of 8 and 16-byte aligned storage")
+        out += list(st)
+    return out
+
+
+def _raise_on(err: int, lib, fn: str, what: str) -> None:
+    if err:
+        msg = getattr(lib, fn)(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
+                           scale: float | None = None, layout: str = "bhsd",
+                           return_lse: bool = False):
+    """Flash attention on the GPU (K5).
+
+    ``layout="bhsd"``: q (B, H, Sq, D), k and v (B, Hk, Skv, D);
+    ``layout="bshd"``: q (B, Sq, H, D), k and v (B, Skv, Hk, D). All three
+    float32 or all bfloat16 on one CUDA device, H % Hk == 0, D a multiple of
+    8 up to 128, unit stride along D, the other strides multiples of 8 and
+    16-byte aligned storage (any view of a contiguous tensor of such a shape
+    qualifies); Skv >= Sq when causal or windowed (every row then sees a
+    key). Returns a new tensor of q's shape, layout and dtype: the softmax
+    over the visible keys (scores scaled by 1/sqrt(D) unless ``scale`` is
+    given, float32 arithmetic); with ``return_lse`` also the float32
+    log-sum-exp of each row's visible scaled scores, (B, H, Sq).
+    """
+    (B, H, Hk, Sq, Skv, D), strides = _dims(q, k, v, causal, window, layout)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or Sq == 0 or H == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides += list(_bhs_strides(out, layout))
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             B, H, Hk, Sq, Skv, D, *strides, int(bool(causal)), int(window),
             float(scale if scale is not None else 1.0 / math.sqrt(D)),
             _DTYPES[q.dtype], stream)
-    if err:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
+    _raise_on(err, lib, "flash_attention_error_string", "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True,
+                               window: int = 0, scale: float | None = None,
+                               layout: str = "bhsd"):
+    """The gradient of flash attention on the GPU (K5b).
+
+    q, k, v as ``flash_attention_kernel`` takes them; ``o`` and ``lse`` what
+    it returned for them with ``return_lse=True``; ``do`` the cotangent of
+    ``o`` (q's shape, layout and dtype; the same stride rules). Returns new
+    tensors (dq, dk, dv) of the shapes, layout and dtype of q, k and v: dk
+    and dv summed over each kv head's query heads, masked pairs contributing
+    exactly 0.
+    """
+    (B, H, Hk, Sq, Skv, D), strides = _dims(q, k, v, causal, window, layout)
+    for name, t in (("o", o), ("do", do)):
+        if (not isinstance(t, torch.Tensor) or t.dtype != q.dtype
+                or tuple(t.shape) != tuple(q.shape) or t.device != q.device):
+            raise ValueError(f"{name} must be a {q.dtype} tensor of q's shape "
+                             f"{tuple(q.shape)} on {q.device}")
+    if (not isinstance(lse, torch.Tensor) or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, H, Sq) or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 ({B}, {H}, {Sq}) "
+                         f"tensor on {q.device}")
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    if B == 0 or Sq == 0 or H == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides += _strides((o, do), layout) + _strides((dq, dk, dv), layout)
+    lib = _library_bwd()
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), B, H, Hk, Sq, Skv, D, arr,
+            int(bool(causal)), int(window),
+            float(scale if scale is not None else 1.0 / math.sqrt(D)),
+            _DTYPES[q.dtype], stream)
+    _raise_on(err, lib, "flash_attention_bwd_error_string", "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --workload tg \\
         --dataset tiny --epochs 2 --ckpt-dir /tmp/ck --device cpu
 
-Two workloads, selected by ``--workload``, as in the reference's
+Three workloads, selected by ``--workload``, as in the reference's
 ``launch/train.py``:
   * ``tg``   — CTDG link prediction (``--model``, default 2-layer TGAT
                with k = 20 on the host recency sampler) on a synthetic
@@ -13,14 +13,26 @@ Two workloads, selected by ``--workload``, as in the reference's
                (``--model gclstm``, ``--discretization h``) with a
                checkpoint after every chunk of ``--chunk-size`` snapshot
                pairs, so a resume lands mid-epoch on the exact chunk
-               boundary (``snapshot_cursor``).
+               boundary (``snapshot_cursor``);
+  * ``lm``   — LM training (``--arch``, default qwen3-0.6b, at full width
+               or ``--reduced``) on the synthetic token stream, random
+               parameters from ``--seed``; on the card every attention
+               runs K5 forward and K5b backward; the parameters and the
+               optimizer state go to an ``AsyncCheckpointer`` every
+               ``--ckpt-every`` steps, and a resumed run skips the batches
+               already consumed (the stream is a pure function of the
+               seed), so it ends on the uninterrupted run's bits.
 
-The last line gives the test MRR (also in full, to compare runs bit for
-bit). ``--resume`` restores the newest checkpoint in ``--ckpt-dir``;
-``--simulate-failure N`` exits with code 42 after epoch N (``tg``) or
-after N chunks (``dtdg``), to exercise the restart path. Runs on the card
-by default (``--device cuda``; it raises without a GPU). ``--workload lm``
-(LM training) is not ported yet and raises.
+The last line gives the test MRR (``tg``, ``dtdg``) or the final loss
+(``lm``), also in full, to compare runs bit for bit. ``--resume`` restores
+the newest checkpoint in ``--ckpt-dir``; ``--simulate-failure N`` exits
+with code 42 after epoch N (``tg``), after N chunks (``dtdg``) or after
+step N (``lm``), to exercise the restart path. Runs on the card by default
+(``--device cuda``; it raises without a GPU).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --workload lm \\
+        --arch qwen3-0.6b --reduced --steps 12 --batch-size 2 --seq-len 16 \\
+        --device cpu
 """
 
 from __future__ import annotations
@@ -125,6 +137,67 @@ def train_dtdg(args) -> int:
     return 0
 
 
+def train_lm(args) -> int:
+    """Steps of LM training on the synthetic token stream with async
+    checkpoints every ``--ckpt-every`` steps, then the final loss."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.models.lm import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.lm_train import init_opt_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = M.init(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=args.lr),
+                              kv_block=min(1024, args.seq_len))
+
+    start = 0
+    if args.resume and ckpt.latest_step(args.ckpt_dir) is not None:
+        tree, start_step, _ = ckpt.restore(
+            args.ckpt_dir, target={"params": params, "opt": opt_state})
+        live = tree_leaves({"params": params, "opt": opt_state})
+        with torch.no_grad():  # assemble() keeps the target's nesting and order
+            for dst, src in zip(live, tree_leaves(tree)):
+                dst.copy_(torch.as_tensor(src))
+        start = start_step + 1
+        print(f"[resume] restored step {start - 1}", flush=True)
+
+    writer = ckpt.AsyncCheckpointer(args.ckpt_dir, keep=3)
+    batches = synthetic_token_batches(cfg.vocab_size, args.batch_size,
+                                      args.seq_len, args.steps, seed=args.seed)
+    t0 = time.perf_counter()
+    metrics = None
+    for step, (tokens, labels) in enumerate(batches):
+        if step < start:
+            continue  # deterministic replay: skip the batches consumed
+        batch = {"tokens": torch.as_tensor(tokens, device=device),
+                 "labels": torch.as_tensor(labels, device=device)}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if step % args.log_every == 0:
+            print(f"step {step}: loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        if args.ckpt_every and step % args.ckpt_every == 0:
+            writer.save(step, {"params": params, "opt": opt_state})
+        if args.simulate_failure is not None and step == args.simulate_failure:
+            writer.wait()
+            print("[failure-injection] exiting mid-run", flush=True)
+            os._exit(42)
+    writer.close()
+    loss = float(metrics["loss"])
+    print(f"done: final loss {loss:.4f} ({loss!r})", flush=True)
+    return 0
+
+
 def main(argv: Optional[list] = None) -> int:
     """Parse the flags and run the workload; returns the exit code."""
     p = argparse.ArgumentParser()
@@ -146,14 +219,20 @@ def main(argv: Optional[list] = None) -> int:
     # dtdg
     p.add_argument("--discretization", default="h")
     p.add_argument("--chunk-size", type=int, default=4)
+    # lm
+    p.add_argument("--arch", default="qwen3-0.6b")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--ckpt-every", type=int, default=20)
     args = p.parse_args(argv)
     if args.workload == "tg":
         return train_tg(args)
     if args.workload == "dtdg":
         return train_dtdg(args)
-    raise NotImplementedError(
-        "--workload lm: LM training is not ported yet (ROADMAP A6, the rest "
-        "of the LM stack)")
+    return train_lm(args)
 
 
 if __name__ == "__main__":

@@ -5,16 +5,18 @@ ssm and hybrid families use, in PyTorch.
 
 Each block has ``<block>_specs(cfg)`` + ``<block>(params, cfg, ...)`` as in
 the reference, with the same names and layouts. The reference's ``shard``
-annotations are dropped (one card, no mesh). The prefill's two TPU kernels
-are reached here: ``self_attention`` and ``ssd_mix`` take ``mode``, and on a
-CUDA tensor with ``mode="auto"`` (or ``"kernel"``) attention runs K5
-(``kernels.flash_attention``, both of the reference's routes, the window as
-K5's mask) and the SSD scan runs K6 (``kernels.ssd_chunk``); a CUDA tensor
+annotations are dropped (one card, no mesh). The two TPU kernels of the
+prefill and the training forward are reached here: ``self_attention`` and
+``ssd_mix`` take ``mode``, and on a CUDA tensor with ``mode="auto"`` (or
+``"kernel"``) attention runs K5 (``kernels.flash_attention``, both of the
+reference's routes, the window as K5's mask; differentiable, its gradient
+the kernel K5b) and the SSD scan runs K6 (``kernels.ssd_chunk``; forward
+only, so a call there that needs a gradient raises); a CUDA tensor
 launches the kernel or raises. ``mode="ref"``, and any CPU tensor, runs the
 reference's own algorithms in torch (``flash_attention``,
-``swa_flash_attention``, chunked ``ssd_mix``). The decode step stays plain
-PyTorch, as the reference's is plain jnp: decode attention over a cache with
-a fill level is not K5's contract.
+``swa_flash_attention``, chunked ``ssd_mix``), differentiated by autograd.
+The decode step stays plain PyTorch, as the reference's is plain jnp:
+decode attention over a cache with a fill level is not K5's contract.
 
 The cached decode functions update the cache dict they are given in place
 (the new key and value rows, ``slot_pos`` and ``idx``) and return it; the
@@ -319,7 +321,8 @@ def self_attention(p, cfg: ArchConfig, x, positions, *, causal=True,
 
     On a CUDA tensor with ``mode`` "auto" or "kernel" the attention is K5
     (either reference route: the window is K5's mask, and K5 skips the
-    tiles it excludes); otherwise the reference's route: the block-skipping
+    tiles it excludes), its gradient K5b; otherwise the reference's route:
+    the block-skipping
     ``swa_flash_attention`` when the window fits a kv block and the sequence
     spans more than two, else ``flash_attention``."""
     q, k, v = _qkv(p, cfg, x, positions, rope)

@@ -1,31 +1,40 @@
-"""The LM model of the port: parameter specs, caches, prefill and decode for
-the dense, ssm and hybrid families — the serving half of the reference's
-``models/lm/model.py``, in PyTorch.
+"""The LM model of the port: parameter specs, the training forward and
+loss, caches, prefill and decode for the dense, ssm and hybrid families —
+the reference's ``models/lm/model.py``, in PyTorch.
 
 Parameters keep the reference's stacked ``(L, ...)`` leaves; the
 reference's ``lax.scan`` over layers is a Python loop that takes layer
-``i``'s views (``remat`` and ``scan_layers`` mean nothing in eager
-PyTorch). Caches keep the reference's layout too (every leaf stacked over
-layers, ``idx`` and ``slot_pos`` int32): ``prefill`` fills a fresh cache and
+``i``'s views (``scan_layers`` means nothing in eager PyTorch). Under
+``cfg.remat`` each layer of the training forward goes through
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint``: the backward recomputes the layer. Caches
+keep the reference's layout too (every leaf stacked over layers, ``idx``
+and ``slot_pos`` int32): ``prefill`` fills a fresh cache and
 ``decode_step`` updates the cache it is given in place and returns it (the
 reference returns a new pytree; in place saves a copy of every cache per
 token).
 
-The prefill runs the two TPU kernels on the card: every attention through
-K5 and every SSD mixer through K6 when ``mode`` is "auto" (the default) and
-the tensors are on CUDA; ``mode="ref"`` runs the reference's plain
-algorithms. The decode step is plain PyTorch, as the reference's is jnp.
+The training forward and the prefill run the two TPU kernels on the card:
+every attention through K5 and every SSD mixer through K6 when ``mode`` is
+"auto" (the default) and the tensors are on CUDA; ``mode="ref"`` runs the
+reference's plain algorithms. Attention trains on the card through K5 and
+its gradient kernel K5b; K6 has no gradient kernel yet, so a gradient
+through the SSD mixer on the card raises (the ssm and hybrid families train
+on the CPU, or with ``mode="ref"``). The decode step is plain PyTorch, as
+the reference's is jnp.
 
 Entry points:
   param_specs(cfg)                       -> Spec tree
   init(cfg, generator, device)           -> params
+  forward(params, cfg, tokens, ...)      -> (logits (B, S, V), aux)
+  loss_fn(params, cfg, batch, ...)       -> scalar CE loss
   prefill(params, cfg, batch, ...)       -> (last logits, cache)
   prefill_layer(layer_p, cfg, x, c, pos) -> one layer's output (fills c)
   decode_step(params, cfg, cache, tok)   -> (logits, cache)
   init_cache(cfg, batch, max_len, ...)   -> cache
 
-The MoE, audio and vlm families, and the training path (``forward``,
-``loss_fn``), are not ported yet: they raise ``NotImplementedError``.
+The MoE, audio and vlm families are not ported yet (ROADMAP A6): they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.lm import layers as L
@@ -44,8 +55,8 @@ FAMILIES = ("dense", "ssm", "hybrid")
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet; the "
-            f"port carries {', '.join(FAMILIES)}")
+            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
+            f"(ROADMAP A6); the port carries {', '.join(FAMILIES)}")
 
 
 # ======================================================================
@@ -108,14 +119,126 @@ def _layer(tree, i: int):
 # Embedding and head
 # ======================================================================
 def _embed_tokens(params, cfg: ArchConfig, tokens):
-    emb = params["embed"]
-    return emb.to(L.cdtype(cfg))[tokens.long()]
+    """The token rows of the embedding in the compute dtype, gathered by
+    ``F.embedding``: its CUDA backward sorts the ids and sums each id's run
+    in parallel, where indexing's walks a row's duplicates one after
+    another (a synthetic batch of 16,384 tokens names each of at most 64
+    rows hundreds of times)."""
+    return F.embedding(tokens.long(), params["embed"].to(L.cdtype(cfg)))
 
 
 def _lm_head(params, cfg: ArchConfig, x):
     x = L.norm(cfg, params["final_norm"], x)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ w.to(x.dtype)
+
+
+# ======================================================================
+# Blocks and the training forward
+# ======================================================================
+def _decoder_block(p, cfg: ArchConfig, x, positions, *, kv_block=1024,
+                   mode: str = "auto"):
+    """One decoder layer of the training forward (the reference's per-family
+    block): pre-norm attention (hybrid: attention and the SSD mixer side by
+    side, their normed outputs averaged; ssm: the mixer alone), then the
+    MLP."""
+    fam = cfg.family
+    if fam == "ssm":
+        return x + L.ssd_block(p["ssd"], cfg, L.norm(cfg, p["norm"], x), mode=mode)
+    h = L.norm(cfg, p["norm1"], x)
+    a, _ = L.self_attention(p["attn"], cfg, h, positions,
+                            window=cfg.sliding_window, kv_block=kv_block,
+                            mode=mode)
+    if fam == "hybrid":
+        s = L.ssd_block(p["ssd"], cfg, h, mode=mode)
+        x = x + 0.5 * (L.norm(cfg, p["attn_norm"], a) + L.norm(cfg, p["ssd_norm"], s))
+    else:
+        x = x + a
+    return x + L.mlp_block(p["mlp"], cfg, L.norm(cfg, p["norm2"], x))
+
+
+def _scan_blocks(blocks, cfg: ArchConfig, x, positions, *, kv_block=1024,
+                 mode: str = "auto"):
+    """The decoder stack over layer ``i``'s views of the stacked leaves ->
+    (hidden, aux). Each layer's parameters are cast to the compute dtype
+    when it differs from theirs; under ``cfg.remat`` the layer (cast
+    included) is checkpointed. ``aux`` is the MoE balance loss, zero for
+    the families the port carries."""
+    def body(x, layer_p):
+        if cfg.param_dtype != cfg.compute_dtype:
+            layer_p = L.cast_tree(layer_p, x.dtype)
+        return _decoder_block(layer_p, cfg, x, positions, kv_block=kv_block,
+                              mode=mode)
+
+    for i in range(cfg.num_layers):
+        layer_p = _layer(blocks, i)
+        if cfg.remat:
+            x = checkpoint(body, x, layer_p, use_reentrant=False)
+        else:
+            x = body(x, layer_p)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _forward_hidden(params, cfg: ArchConfig, tokens, *, frontend=None,
+                    kv_block=1024, mode: str = "auto"):
+    """Causal forward up to (but excluding) the LM head -> (hidden, aux)."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"the {cfg.family} family's forward ({cfg.name}: its encoder or "
+            f"cross-attention blocks) is not ported yet (ROADMAP A6)")
+    _check_family(cfg)
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    return _scan_blocks(params["blocks"], cfg, x, positions, kv_block=kv_block,
+                        mode=mode)
+
+
+def forward(params, cfg: ArchConfig, tokens, *, frontend=None, kv_block=1024,
+            mode: str = "auto"):
+    """Causal forward over full sequences -> (logits (B, S, V), aux).
+    ``frontend`` (the audio and vlm families' stub embeddings) is taken for
+    the reference's signature; those families raise."""
+    x, aux = _forward_hidden(params, cfg, tokens, frontend=frontend,
+                             kv_block=kv_block, mode=mode)
+    return _lm_head(params, cfg, x), aux
+
+
+def _ce_sum(params, cfg: ArchConfig, x, labels):
+    """Cross-entropy sum from hidden states: the logits stay in the compute
+    dtype and only the reductions run in float32 (no float32 (B, S, V)
+    logits are kept)."""
+    logits = _lm_head(params, cfg, x)
+    m = logits.detach().amax(-1)
+    z = torch.exp((logits - m[..., None]).float()).sum(-1)
+    logz = m.float() + torch.log(z)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold.float()).sum()
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, kv_block=1024,
+            ce_chunks: int = 0, mode: str = "auto"):
+    """Mean next-token cross-entropy over ``batch["tokens"]`` against
+    ``batch["labels"]`` (+ 0.01 x the MoE aux loss, zero here).
+
+    ``ce_chunks > 0`` (dividing S): the LM head and the cross-entropy run
+    per sequence chunk, each chunk checkpointed, so only one (B, S /
+    chunks, V) block of logits is live at a time, in the forward and in the
+    backward; the chunks' sums are added in order, as the reference's scan
+    does.
+    """
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, S = tokens.shape
+    x, aux = _forward_hidden(params, cfg, tokens, frontend=batch.get("frontend"),
+                             kv_block=kv_block, mode=mode)
+    if ce_chunks and S % ce_chunks == 0:
+        Sc = S // ce_chunks
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(ce_chunks):
+            part = slice(c * Sc, (c + 1) * Sc)
+            total = total + checkpoint(_ce_sum, params, cfg, x[:, part],
+                                       labels[:, part], use_reentrant=False)
+        return total / (B * S) + 0.01 * aux
+    return _ce_sum(params, cfg, x, labels) / (B * S) + 0.01 * aux
 
 
 # ======================================================================

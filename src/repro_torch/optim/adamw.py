@@ -10,7 +10,9 @@ moments, bias corrections computed in float32 from the step count,
 copy of either tree), under ``torch.no_grad()``, with one multi-tensor
 launch per elementwise step over all leaves rather than one launch per
 leaf, and reads nothing back to the host: the step count stays a device
-tensor.
+tensor. Parameters and gradients of another dtype (the LM's bfloat16) are
+read in float32 and each parameter's new value is rounded once to its
+dtype, as the reference's ``(p.f32 - lr * delta).astype(p.dtype)``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any]:
     """One AdamW step. Returns ``(params, state)``: the same parameter
     tensors, updated in place, and the state with its moments updated in
     place and a new step tensor. ``params`` and ``grads`` (which mirrors
-    them) are float32, as the port's pipelines hold them."""
+    them) may be float32 or bfloat16: the arithmetic is float32."""
     step = state["step"] + 1
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
@@ -61,12 +63,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any]:
     # One multi-tensor launch per elementwise step over all leaves (the
     # torch._foreach ops), in the reference's order of operations.
     mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
-    p, g = tree_leaves(params), tree_leaves(grads)
+    p, g = tree_leaves(params), [x.float() for x in tree_leaves(grads)]
     mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
     torch._foreach_copy_(mu, add(mul(mu, b1), mul(g, 1.0 - b1)))
     torch._foreach_copy_(nu, add(mul(nu, b2), mul(mul(g, g), 1.0 - b2)))
     delta = div(div(mu, bc1), add(torch._foreach_sqrt(div(nu, bc2)), cfg.eps))
     if cfg.weight_decay:
-        delta = add(delta, mul(p, cfg.weight_decay))
+        delta = add(delta, mul([x.float() for x in p], cfg.weight_decay))
     torch._foreach_sub_(p, mul(delta, cfg.lr))
     return params, {"mu": state["mu"], "nu": state["nu"], "step": step}

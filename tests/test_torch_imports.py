@@ -71,7 +71,9 @@ def test_port_modules_load_no_jax_and_no_reference():
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.compression",
             "repro_torch.distributed.dp_trainer",
-            "repro_torch.launch.mesh"} <= set(names)
+            "repro_torch.launch.mesh", "repro_torch.optim.clip",
+            "repro_torch.optim.schedule", "repro_torch.data.tokens",
+            "repro_torch.train.lm_train"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -6,7 +6,9 @@ background checkpointer, the legacy trainer and the event types.
   workload (its default model, 2-layer TGAT with k = 20, and ``--model
   tpnet`` as the reference's ``test_tg_workload_resume`` runs it) killed
   after an epoch and resumed; the ``dtdg`` workload (GCLSTM) killed
-  mid-epoch and resumed to a bit-identical final test MRR.
+  mid-epoch and resumed to a bit-identical final test MRR; the ``lm``
+  workload runs the reduced qwen3 and ends on its ``done`` line (its kill
+  and resume: ``tests/test_torch_lm_train.py``).
 * ``AsyncCheckpointer``: a tree updated in place after ``save()`` restores
   to its values at ``save()``; retention; ``close()`` twice; a failed write
   raises on the caller's thread.
@@ -120,9 +122,18 @@ def test_tg_defaults_build_two_layer_tgat(tmp_path, monkeypatch):
     assert hops == [2] and not tr.sampler_spec.device
 
 
-def test_lm_workload_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        launch_train.main(["--workload", "lm", "--device", "cpu"])
+def test_lm_workload_runs_and_prints_the_done_line(tmp_path, capsys):
+    """``--workload lm`` trains the reduced qwen3-0.6b on the CPU and ends on
+    the reference's ``done: final loss`` line (kill and resume:
+    ``tests/test_torch_lm_train.py``)."""
+    rc = launch_train.main(["--workload", "lm", "--device", "cpu", "--reduced",
+                            "--steps", "2", "--batch-size", "2", "--seq-len",
+                            "16", "--log-every", "1", "--ckpt-every", "1",
+                            "--ckpt-dir", str(tmp_path)])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0 and [ln.split(":")[0] for ln in lines] == ["step 0", "step 1", "done"]
+    assert lines[-1].startswith("done: final loss ")
+    assert ckpt.latest_step(str(tmp_path)) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -403,3 +403,48 @@ def test_kernel_mirror_matches_the_plain_version(case):
     np.testing.assert_allclose(y, wy.numpy(), rtol=2e-2, atol=2e-2)
     scale = np.abs(wst.numpy()).max()
     assert np.abs(st - wst.numpy()).max() <= 1e-3 * scale
+
+
+def test_a_gradient_call_on_the_kernel_path_raises(monkeypatch):
+    """K6 writes its outputs through ctypes, out of autograd's sight, and has
+    no backward kernel yet: on the kernel path a call that needs a gradient
+    raises (naming the next item of ROADMAP A6) rather than detach what is
+    upstream; a call without one launches as before. The kernel is stood in
+    for by a recording stub, ``use_kernel`` taking the kernel path."""
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models.lm import layers as lm_layers
+
+    calls = []
+
+    def stub(x, dt, a, Bm, Cm):
+        calls.append(tuple(x.shape))
+        return ssd_chunk_ref(x, dt, a, Bm, Cm)
+
+    monkeypatch.setattr(ssd_ops, "use_kernel", lambda mode, x: mode != "ref")
+    monkeypatch.setattr(lm_layers, "use_kernel", lambda mode, x: mode != "ref")
+    monkeypatch.setattr(ssd_ops, "_FWD", stub)
+    rng = np.random.default_rng(2)
+    x, bm, cm = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                 for s in ((1, 40, 4, 8), (1, 40, 1, 16), (1, 40, 1, 16)))
+    dt = torch.as_tensor(np.abs(rng.standard_normal((1, 40, 4))).astype(np.float32))
+    a = -torch.ones(4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        ssd_ops.ssd_chunk_scan(x.requires_grad_(), dt, a, bm, cm)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_ops.ssd(x[0], dt[0], a, bm[0].expand(40, 4, 16), cm[0].expand(40, 4, 16))
+    assert calls == []
+    with torch.no_grad():
+        ssd_ops.ssd_chunk_scan(x, dt, a, bm, cm)
+    ssd_ops.ssd_chunk_scan(x.detach(), dt, a, bm, cm)
+    assert calls == [(1, 40, 4, 8)] * 2
+    # through the model's mixer, as a train step would reach it
+    from repro_torch.configs import ARCHS as TARCHS
+    from repro_torch.models.lm.params import materialize
+
+    cfg = TARCHS["mamba2-780m"].reduced()
+    p = materialize(lm_layers.ssd_specs(cfg), torch.Generator().manual_seed(0))
+    h = torch.randn((1, 16, cfg.d_model), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K6"):
+        lm_layers.ssd_block(p, cfg, h)
+    lm_layers.ssd_block(p, cfg, h, mode="ref").sum().backward()
+    assert h.grad is not None and len(calls) == 2
