@@ -210,17 +210,24 @@ outside a checkout of the repository. Phases, each printed as a JSON line
    (the attention gradient, LM training's) at the same two shapes: K5's
    log-sum-exp against the plain one, dq, dk and dv against the plain
    backward and against autograd of the plain forward (BF16_TOL of each
-   gradient's largest entry), a second launch bitwise, times of K5b, the
-   plain backward and SDPA forward + backward beside its bound;
+   gradient's largest entry), a second launch bitwise, its bf16 launch plan
+   (TMA maps, grids, shared memory) equal to the Python mirror's, times of
+   K5b, the plain backward, SDPA forward + backward and SDPA's backward
+   alone (one saved forward) beside its bound, and ptxas' registers and
+   spills of its bf16 kernels (none may spill);
    degenerate inputs (Sq != Skv, S = 1, S not a
    multiple of the tile or chunk, window >= S, non-causal, float32 on K5's
    and K6's CUDA-core kernels, bfloat16 on K5's tensor-core kernel at D =
    8, 48, 96 and 120, offsets and windows that are not multiples of a
    tile, one query over 4,096 keys; K6 at S = 129 and 4,095, with zero-dt
    rows, steep decay in both types, groups incl. two at N = 128, P and N
-   not multiples of 16; K5b likewise: Sq != Skv, one query over 4,096
-   keys, S = 1,000, a window >= S, non-causal, D 96, 128 and padded 120,
-   float32 on its CUDA-core kernels); ``profiler_clock`` before the phase.
+   not multiples of 16; K5b likewise (``K5B_CASES``): Sq != Skv, one
+   query over 4,096 keys, S = 1,000, a window >= S, non-causal, D 96, 128
+   and padded 120, float32 on its CUDA-core kernels, and at its bf16
+   blocks' edges: Skv = 200 with G 5 and a window, key blocks no row sees,
+   Sq = 200 at D 128; keys no row sees get exactly zero dk and dv, and
+   the bhsd layout's call the same bits);
+   ``profiler_clock`` before the phase.
 17. ``lm``     — first the decode attentions' products (``layers.
    _attend_cache``, bf16 GEMMs with float32 output over views of the
    cache) against the float32-copy form at hymba's and qwen3's decode
@@ -247,7 +254,8 @@ outside a checkout of the repository. Phases, each printed as a JSON line
    and with ``mode="ref"`` (loss within BF16_TOL; whole-model gradients
    reported: chaotic in depth); ten timed steps (losses, ms a step,
    tokens/s, peak memory, ``mfu``) and the card's busy share over three
-   more; the float32 variant at 4 layers held whole against the plain
+   more, with K5b's device ms a step by kernel (row statistics, dq pass,
+   dk/dv pass); the float32 variant at 4 layers held whole against the plain
    step (loss, every gradient, grad_norm, the updated parameters); last
    ``python -m repro_torch.launch.train --workload lm`` on the card: the
    reduced qwen3 with the reference test's flags killed at step 7 and
@@ -321,6 +329,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -436,6 +445,10 @@ TPU_K3B = ("src/repro/kernels/temporal_attention/ref.py:10 (no TPU kernel: "
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 TPU_K5 = "src/repro/kernels/flash_attention/kernel.py:77"
 FA_BWD_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+# K5b's bf16 kernels by name (the profiler's and ptxas'): the row statistics,
+# the dq pass and the dk/dv pass.
+K5B_KERNELS = ("fa_bwd_stats_kernel", "fa_bwd_dq_wg_kernel", "fa_bwd_dkdv_wg_kernel")
+BUILD_LOGS: dict = {}  # nvcc's output per library, from main's build
 # K5b has no TPU kernel: the JAX package's LM takes autodiff of its jnp
 # blocked attention.
 TPU_K5B = ("src/repro/models/lm/layers.py:95 (no TPU kernel: autodiff of the "
@@ -4800,12 +4813,13 @@ def trace_phase(torch, pipe, n_batches: int = 30, train: bool = False):
     return {"batches": n_batches, **device_window(prof, wall_us)}
 
 
-def device_window(prof, wall_us):
+def device_window(prof, wall_us, sum_of=()):
     """Device busy time (the union of the device events' intervals), idle
     share (one minus busy over the window's host-clock time ``wall_us``) and
     device time by kernel name, largest first, of a ``torch.profiler`` run
     (busy time and idle share ``None`` where it kept no device event: not
-    measured).
+    measured); with ``sum_of``, also ``ms_of``: the device ms of the
+    kernels whose names hold each of those fragments.
     Read from the profiler's raw kineto events (device records, in ns):
     building ``prof.events()`` over a window of thousands of launches takes
     tens of seconds."""
@@ -4825,6 +4839,7 @@ def device_window(prof, wall_us):
                                      ("K3", ("ta_fwd_kernel",)),
                                      ("K3b", ("ta_bwd_kernel",)))}
     return {"device_events": len(spans),
+            "ms_of": {f: sum(v for k, v in by_name.items() if f in k) / 1e6 for f in sum_of},
             "window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e6 if spans else None,
             "device_idle_share": 1.0 - busy / 1e3 / wall_us if spans else None,
             "device_ms_by_name": {k: v / 1e6 for k, v in top},
@@ -4959,6 +4974,63 @@ K6_SHAPES = (("hymba", LM_B, LM_S, 50, 1, 64, 16),
              ("hymba_32k", 1, 32_768, 50, 1, 64, 16))
 
 
+# K5b's degenerate cases (name, B, H, Hk, Sq, Skv, D, causal, window, dtype):
+# Sq != Skv (one query over 4,096 keys too), S not a multiple of a tile, a
+# window >= S, non-causal, float32 on the CUDA cores, D 64, 96, 128 and
+# zero-padded 120 and 8 (float32); then the bf16 passes' 128-row blocks and
+# 64-row tiles: Skv not a multiple of 128 with G 5 and a window, key blocks
+# no row sees (Sq < Skv behind a window), Sq not a multiple of 128 at D 128.
+K5B_CASES = (("sq100_skv4096_window", 2, 25, 5, 100, 4096, 64, True, 1024, "bfloat16"),
+             ("s1000_unaligned", 2, 25, 5, 1000, 1000, 64, True, 1024, "bfloat16"),
+             ("window_ge_s", 2, 25, 5, 1000, 1000, 64, True, 2048, "bfloat16"),
+             ("bidirectional", 2, 4, 2, 200, 263, 32, False, 0, "bfloat16"),
+             ("window_no_causal", 1, 4, 2, 300, 300, 64, False, 64, "bfloat16"),
+             ("bf16_d96", 1, 32, 32, 300, 300, 96, True, 0, "bfloat16"),
+             ("bf16_d128_s1000", 1, 16, 8, 1000, 1000, 128, True, 0, "bfloat16"),
+             ("bf16_d120", 1, 6, 2, 130, 130, 120, True, 40, "bfloat16"),
+             ("bf16_sq1_skv4096", 4, 16, 8, 1, 4096, 128, True, 0, "bfloat16"),
+             ("f32_hymba", 1, 25, 5, 1000, 1000, 64, True, 1024, "float32"),
+             ("f32_qwen3", 1, 16, 8, 1000, 1000, 128, True, 0, "float32"),
+             ("f32_d8_offset", 1, 4, 4, 130, 197, 8, True, 0, "float32"),
+             ("bf16_skv200_g5_window", 1, 10, 2, 200, 200, 64, True, 70, "bfloat16"),
+             ("bf16_unseen_key_blocks", 2, 4, 2, 20, 300, 64, True, 8, "bfloat16"),
+             ("bf16_sq200_d128", 2, 16, 8, 200, 200, 128, True, 0, "bfloat16"))
+
+
+def ptxas_report(logs: dict, fragments, library: str):
+    """Registers, spill bytes and ``wgmma`` serialisation warnings of each
+    kernel whose mangled name holds one of ``fragments``, from the ``nvcc
+    -Xptxas -v`` output of the library whose name starts with ``library``
+    (``_build.build_all``'s logs), each kernel read from its "Compiling
+    entry function" line to the next. ``None`` when that library was not
+    built in this run (its log is empty); the check fails when a kernel's
+    report lacks a number."""
+    log = next((t for n, t in logs.items() if n.startswith(library + "-")), "")
+    if not log:
+        return None
+    lines = log.splitlines()
+    starts = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln]
+    out = {}
+    for i, j in zip(starts, starts[1:] + [len(lines)]):
+        frag = next((f for f in fragments if f in lines[i]), None)
+        if frag is None:
+            continue
+        name = lines[i].split("'")[1]
+        block = "\n".join(lines[i + 1:j])
+
+        def num(pat):
+            m = re.search(pat, block)
+            check(m is not None, f"ptxas report of {name}: no match for {pat!r}")
+            return int(m.group(1))
+
+        label = frag + ("<128>" if "ILi128E" in name else "<64>" if "ILi64E" in name else "")
+        out[label] = dict(registers=num(r"Used (\d+) registers"),
+                          spill_stores=num(r"(\d+) bytes spill stores"),
+                          spill_loads=num(r"(\d+) bytes spill loads"),
+                          wgmma_serialized=any("C7512" in x and name in x for x in lines))
+    return out
+
+
 def k5b_check(torch, gen, q, k, v, causal, window, label):
     """K5b at one of the slice's shapes: K5's log-sum-exp (and its output
     with it bit-equal to the call without) against the plain log-sum-exp;
@@ -5002,10 +5074,16 @@ def k5b_check(torch, gen, q, k, v, causal, window, label):
         with torch.enable_grad():
             return torch.autograd.grad(sdpa(), (qs, ks, vs), T(do))
 
+    with torch.enable_grad():  # one saved forward: SDPA's backward alone
+        saved = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(saved, (qs, ks, vs), T(do), retain_graph=True)
+
     fns = {"bwd": lambda: flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw, layout="bshd"),
            "bwd_plain": lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw,
                                                         layout="bshd"),
-           "bwd_sdpa": sdpa_fwd_bwd}
+           "bwd_sdpa": sdpa_fwd_bwd, "bwd_sdpa_only": sdpa_bwd}
     out = dict(max_abs_err=max(e[0] for e in errs.values()),
                rel_err={n: e[1] for n, e in errs.items()},
                rel_err_vs_autograd={n: e[1] for n, e in errs_auto.items()},
@@ -5014,9 +5092,9 @@ def k5b_check(torch, gen, q, k, v, causal, window, label):
 
 
 def k5b_case(torch, gen, cases, name, B, H, Hk, Sq, Skv, D, causal, window, dtype):
-    """K5b on one degenerate input against the plain backward (``_bwd_tol``
-    of each gradient's largest entry), a second launch bitwise; appended to
-    ``cases``."""
+    """K5b on one degenerate input against the plain backward (BF16_TOL of
+    each gradient's largest entry, ATOL in float32), a second launch and the ``bhsd``
+    layout's call (on transposed copies) bitwise; appended to ``cases``."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_kernel, flash_attention_bwd_ref, flash_attention_kernel)
 
@@ -5028,14 +5106,26 @@ def k5b_case(torch, gen, cases, name, B, H, Hk, Sq, Skv, D, causal, window, dtyp
     again = flash_attention_bwd_kernel(q, k, v, o, lse, do, **kw)
     check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
           f"K5b {name}: a second launch gave other bits")
+    T = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+    bhsd = flash_attention_bwd_kernel(*map(T, (q, k, v, o)), lse, T(do), causal=causal,
+                                      window=window, layout="bhsd")
+    check(all(bool(torch.equal(a.transpose(1, 2), b)) for a, b in zip(bhsd, got)),
+          f"K5b {name}: the two layouts gave other bits")
+    del again, bhsd
     want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
     tol = BF16_TOL if dtype == torch.bfloat16 else ATOL
     errs = [compare_rel(torch, a, b, f"K5b {name} d{n}", tol)
             for n, a, b in zip("qkv", got, want)]
+    i = torch.arange(Sq, device=DEVICE)[:, None] + (Skv - Sq)
+    t = torch.arange(Skv, device=DEVICE)[None, :]
+    seen = ((t <= i) if causal else torch.ones_like(t > i)) & ((t > i - window) if window else True)
+    unseen = ~seen.any(0)
+    check(not bool(got[1][:, unseen].any()) and not bool(got[2][:, unseen].any()),
+          f"K5b {name}: keys no row sees got nonzero dk or dv")
     cases.append({"kernel": "K5b", "case": name, "Sq": Sq, "Skv": Skv, "H": H, "Hk": Hk,
                   "D": D, "causal": causal, "window": window, "dtype": str(dtype),
                   "max_abs_err": max(e[0] for e in errs),
-                  "max_rel_err": max(e[1] for e in errs)})
+                  "max_rel_err": max(e[1] for e in errs), "keys_unseen": int(unseen.sum())})
 
 
 def lm_kernels_phase(torch):
@@ -5086,6 +5176,8 @@ def lm_kernels_phase(torch):
                 library_ms=time_ms(torch, bwd["bwd_sdpa"], 5, 3),
                 library="SDPA forward + backward", device_us=us["bwd"],
                 plain_device_us=us["bwd_plain"], library_device_us=us["bwd_sdpa"],
+                library_bwd_only_ms=time_ms(torch, bwd["bwd_sdpa_only"], 5, 3),
+                library_bwd_only_device_us=us["bwd_sdpa_only"],
                 bound_ms=b_bound, bound_by=b_by, bytes=b_bytes, flops=b_flops)
             rb["bound_share"] = b_bound / rb["ms"]
             rb["tflops"] = b_flops / rb["ms"] / 1e9
@@ -5150,26 +5242,23 @@ def lm_kernels_phase(torch):
         k5_case("bf16_sq1_skv4096", 4, 16, 8, 1, 4096, 128, True, 0, bf, BF16_TOL)
         k5_case("bf16_s1000_d128", 1, 16, 8, 1000, 1000, 128, True, 0, bf, BF16_TOL)
         k5_case("bf16_bidirectional", 2, 4, 2, 200, 263, 32, False, 0, bf, BF16_TOL)
-        # K5b: Sq != Skv (one query over 4,096 keys too), S not a multiple of
-        # a tile, a window >= S, non-causal, float32 on the CUDA cores, D 64,
-        # 96, 128 and zero-padded 120 and 8 (float32).
-        for case in (("sq100_skv4096_window", 2, 25, 5, 100, 4096, 64, True, 1024, bf),
-                     ("s1000_unaligned", 2, 25, 5, 1000, 1000, 64, True, 1024, bf),
-                     ("window_ge_s", 2, 25, 5, 1000, 1000, 64, True, 2048, bf),
-                     ("bidirectional", 2, 4, 2, 200, 263, 32, False, 0, bf),
-                     ("window_no_causal", 1, 4, 2, 300, 300, 64, False, 64, bf),
-                     ("bf16_d96", 1, 32, 32, 300, 300, 96, True, 0, bf),
-                     ("bf16_d128_s1000", 1, 16, 8, 1000, 1000, 128, True, 0, bf),
-                     ("bf16_d120", 1, 6, 2, 130, 130, 120, True, 40, bf),
-                     ("bf16_sq1_skv4096", 4, 16, 8, 1, 4096, 128, True, 0, bf),
-                     ("f32_hymba", 1, 25, 5, 1000, 1000, 64, True, 1024, f32),
-                     ("f32_qwen3", 1, 16, 8, 1000, 1000, 128, True, 0, f32),
-                     ("f32_d8_offset", 1, 4, 4, 130, 197, 8, True, 0, f32)):
-            k5b_case(torch, gen, cases, *case)
+        for case in K5B_CASES:
+            k5b_case(torch, gen, cases, *case[:-1], getattr(torch, case[-1]))
 
     k6, k6_cases = k6_kernels(torch, gen)
     results.update(k6)
     cases += k6_cases
+    # K5b's bf16 kernels as ptxas built them in this run: every instance
+    # reported, none spilling or serializing its wgmma (null when the
+    # library was built before this run)
+    rep = results["ptxas_k5b"] = ptxas_report(BUILD_LOGS, K5B_KERNELS, "flash_attention_bwd")
+    if rep is not None:
+        want = {"fa_bwd_stats_kernel"} | {f"{k}<{d}>" for k in K5B_KERNELS[1:]
+                                          for d in (64, 128)}
+        check(set(rep) == want, f"K5b ptxas report: kernels {sorted(rep)}, want {sorted(want)}")
+        for name, r in rep.items():
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                  and not r["wgmma_serialized"], f"K5b {name}: ptxas spills or serializes ({r})")
     return results, cases
 
 
@@ -5992,7 +6081,7 @@ def lm_train_run(torch, cfg, f32: bool, before_timed_steps=None):
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
             time.sleep(PROFILE_MARGIN_S)
-        busy = device_window(prof, wall_us)
+        busy = device_window(prof, wall_us, sum_of=K5B_KERNELS)
         tokens = LM_B * LM_S
         attn = 12 * cfg.resolved_head_dim * LM_B * cfg.num_heads * n_layers * \
             flash_visible_pairs(LM_S, LM_S, True, cfg.sliding_window)
@@ -6006,7 +6095,9 @@ def lm_train_run(torch, cfg, f32: bool, before_timed_steps=None):
                              device_busy_share=(None if busy["device_idle_share"] is None
                                                 else 1.0 - busy["device_idle_share"]),
                              **{k: busy[k] for k in ("device_busy_ms", "window_ms",
-                                                     "device_ms_by_name")}))
+                                                     "device_ms_by_name")}),
+                   k5b_device_ms_per_step={k: v / LM_TRAIN_BUSY_STEPS
+                                           for k, v in busy["ms_of"].items()})
     del params, opt, live, init, batches
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_run
@@ -6669,6 +6760,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         logs = _build.build_all()
+        BUILD_LOGS.update(logs)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "ptxas": {name: [ln.strip() for ln in log.splitlines()
                                if "registers" in ln or "spill" in ln]
@@ -6986,6 +7078,10 @@ def main() -> int:
         "ms": k5b["ms"], "plain_ms": k5b["plain_ms"],
         "bound_ms": k5b["bound_ms"], "bound_by": k5b["bound_by"],
         "library_ms": k5b["library_ms"], "library": "SDPA forward + backward",
+        "library_bwd_only_ms": k5b["library_bwd_only_ms"],
+        "library_bwd_only_device_us": k5b["library_bwd_only_device_us"],
+        "device_ms_per_train_step": lt["qwen3"]["k5b_device_ms_per_step"],
+        "ptxas": lmk["ptxas_k5b"],
         "shape": "qwen3 B=4 S=4096 H=16/8 D=128 causal bf16",
         "device_us": k5b["device_us"], "library_device_us": k5b["library_device_us"],
         "plain_device_us": k5b["plain_device_us"],
@@ -6994,7 +7090,7 @@ def main() -> int:
         "hymba": {k: lmk["K5b_hymba"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_us",
             "library_device_us", "plain_device_us", "device_us_cuda_events_idle_stream",
-            "bound_share")},
+            "bound_share", "library_bwd_only_ms", "library_bwd_only_device_us")},
     }, {
         "name": "ssd_chunk", "route": "cuda",
         "source": SSD_SOURCE, "replaces": TPU_K6,

@@ -186,48 +186,4 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* base,
   }
 }
 
-// acc (16 rows x kD columns, fragments acc[n], n < kD / 8) += A (16 x 16,
-// k-step fragments a) * rows 16 kk .. 16 kk + 15 of a row-major (k, n) tile
-// in shared memory (`tile`, padded row LDS), read by ldmatrix.trans; only
-// the nk live 16-column pairs. The forward's P V and the backward's dS K,
-// P^T dO and dS^T Q.
-template <int kD, int LDS>
-__device__ __forceinline__ void mma_a_by_rows(float (*acc)[4], const uint32_t* a,
-                                              const bf16* tile, int kk, int nk,
-                                              int lane) {
-#pragma unroll
-  for (int dp = 0; dp < kD / 16; ++dp) {
-    if (dp >= nk) continue;
-    uint32_t bfr[4];
-    ldmatrix_x4_trans(bfr, smem_addr(tile + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                                     16 * dp + 8 * (lane >> 4)));
-    mma_bf16(acc[2 * dp], a, bfr[0], bfr[1]);
-    mma_bf16(acc[2 * dp + 1], a, bfr[2], bfr[3]);
-  }
-}
-
-// s (16 rows x NB columns, fragments s[j], j < NB / 8) += A B^T over the nk
-// live k-steps: A's rows from shared memory at `a_addr` (ldmatrix, the
-// lane's row and half already in the address; 32 bytes a k-step), B's NB
-// rows from a row-major tile (`tile`, padded row LDS). The forward's and
-// the backward's Q K^T, and the backward's dO V^T, K Q^T and V dO^T.
-template <int kD, int LDS, int NB>
-__device__ __forceinline__ void mma_abt(float (*s)[4], uint32_t a_addr, const bf16* tile,
-                                        int nk, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    if (kk >= nk) continue;
-    uint32_t a[4];
-    ldmatrix_x4(a, a_addr + 32 * kk);
-#pragma unroll
-    for (int np = 0; np < NB / 16; ++np) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, smem_addr(tile + (16 * np + (lane & 7) + 8 * (lane >> 4)) * LDS +
-                                 16 * kk + 8 * ((lane >> 3) & 1)));
-      mma_bf16(s[2 * np], a, bfr[0], bfr[1]);
-      mma_bf16(s[2 * np + 1], a, bfr[2], bfr[3]);
-    }
-  }
-}
-
 }  // namespace

@@ -19,10 +19,13 @@ comment says what the design does about its bound. Asked for it
 reference's LM differentiates its jnp blocked attention by autodiff. From
 q, k, v, K5's output and log-sum-exp and the output's cotangent it returns
 dq, dk and dv (dk and dv summed over each kv head's query heads) in three
-device launches (the row sums rowsum(dO * O), a dq pass over q tiles and a
-dk/dv pass over kv tiles, each kv tile walking the q tiles that can see it:
-``q_tile_range``) and no float atomics, so a second call gives the same
-bits. Tiles: ``BWD_TILES``.
+device launches (the row statistics rowsum(dO * O), a dq pass over q tiles
+and a dk/dv pass over kv tiles, each kv tile walking the q tiles that can
+see it: ``q_tile_range``) and no float atomics, so a second call gives the
+same bits. Tiles: ``BWD_TILES``. Its bfloat16 passes are ``wgmma``
+kernels fed by a TMA ring; ``bwd_plan`` computes the arguments of their
+tensor maps and the padded rows of their statistics, which the wrapper
+passes to the CUDA source (it only encodes the maps and launches).
 
 ``flash_attention_kernel`` checks device, dtype, shapes, strides and
 alignment, allocates its output with ``torch.empty``, launches on the
@@ -50,9 +53,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q rows, keys) of a block's tiles: the tensor-core kernel (bfloat16) and
 # the CUDA-core kernel (float32).
 TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 64)}
-# K5b's tiles: (a block's own rows, the walked tile). The dq pass owns q
-# rows and walks kv tiles; the dk/dv pass owns keys and walks q tiles.
-BWD_TILES = {torch.bfloat16: (64, 32), torch.float32: (64, 64)}
+# K5b's tiles per pass: (a block's own rows, the walked tile's rows). The dq
+# pass owns q rows and walks kv tiles; the dk/dv pass owns keys and walks q
+# tiles. bfloat16: two warpgroups own BWD_WG_ROWS rows each, and
+# each skips the walked tiles its own rows cannot see (the block's walk at
+# BWD_WG_ROWS rows).
+BWD_TILES = {torch.bfloat16: {"dq": (128, 64), "dkdv": (128, 64)},
+             torch.float32: {"dq": (64, 64), "dkdv": (64, 64)}}
+BWD_WG_ROWS = 64
+# The bf16 passes' TMA box (64 bf16 columns, one 128-byte swizzle row, by 64
+# rows) and the padding of the row statistics (lse log2(e), Delta), whose
+# rows Sq .. are (+inf, 0).
+_BOX = (64, 64, 1, 1)
+_STATS_ROWS = 128
+_LOG2E = 1.4426950408889634
 _lib = None
 _lib_bwd = None
 
@@ -96,6 +110,64 @@ def tile_needs_mask(q0: int, k0: int, Sq: int, Skv: int, causal: bool,
             or (window > 0 and k0 <= q0 + block_q - 1 + off - window))
 
 
+def bwd_scratch_shape(dtype, B: int, H: int, Sq: int):
+    """The float32 scratch K5b's first launch writes: Delta (B, H, Sq) for
+    float32; for bfloat16 (B H, sq_pad, 2), each row's (lse log2(e), Delta)
+    with Sq rounded up to a multiple of 128 rows, the pad rows (+inf, 0)."""
+    if dtype == torch.float32:
+        return (B, H, Sq)
+    return (B * H, -(-Sq // _STATS_ROWS) * _STATS_ROWS, 2)
+
+
+def bwd_stats_ref(o, lse, do, layout: str = "bhsd"):
+    """The bfloat16 passes' row statistics (``bwd_scratch_shape``), in
+    float32: what the CUDA source's first launch computes."""
+    T = (lambda x: x.transpose(1, 2)) if layout == "bshd" else (lambda x: x)
+    B, H, Sq, _ = T(o).shape
+    shape = bwd_scratch_shape(torch.bfloat16, B, H, Sq)
+    out = torch.zeros(shape, dtype=torch.float32, device=o.device)
+    out[:, Sq:, 0] = math.inf
+    out[:, :Sq, 0] = (lse.float() * _LOG2E).reshape(B * H, Sq)
+    out[:, :Sq, 1] = (T(do).float() * T(o).float()).sum(-1).reshape(B * H, Sq)
+    return out
+
+
+def bwd_tensor_map(D: int, rows: int, heads: int, B: int, strides):
+    """The TMA map arguments of one bfloat16 operand of ``rows`` rows and
+    ``heads`` heads whose element strides are ``strides`` (batch, head,
+    sequence): dims (D, rows, heads, B), byte strides (sequence, head,
+    batch), a stride of 0 taken as 16 (``_check_tma_strides`` allows 0 only
+    on a dimension of extent 1), and the box (64 columns, 64 rows, 1, 1)."""
+    sb, sh, ss = strides
+    return ([D, rows, heads, B], [2 * x if x > 0 else 16 for x in (ss, sh, sb)],
+            list(_BOX))
+
+
+def bwd_plan(B: int, H: int, Hk: int, Sq: int, Skv: int, D: int, strides):
+    """What the wrapper passes to K5b's bfloat16 passes besides the
+    tensors, for the 24 element strides of q, k, v, o, dO, dq, dk, dv
+    ((batch, head, sequence) each): a dict of ``maps``, the map arguments
+    of q, k, v and dO in turn (dims, byte strides, box), and ``sq_pad``,
+    the rows of the padded statistics (the dq pass's grid runs over them
+    in blocks of ``BWD_TILES``' own rows)."""
+    st = list(strides)
+    maps = [bwd_tensor_map(D, Sq, H, B, st[0:3]), bwd_tensor_map(D, Skv, Hk, B, st[3:6]),
+            bwd_tensor_map(D, Skv, Hk, B, st[6:9]), bwd_tensor_map(D, Sq, H, B, st[12:15])]
+    return dict(maps=maps, sq_pad=bwd_scratch_shape(torch.bfloat16, B, H, Sq)[1])
+
+
+def _check_tma_strides(tensors, layout: str):
+    """TMA's rules for the bfloat16 passes' operands: every byte stride of a
+    dimension longer than 1 is positive and below 2^40 (the 16-byte rule is
+    ``_strides``')."""
+    for t in tensors:
+        sizes = t.shape[:3] if layout == "bhsd" else (t.shape[0], t.shape[2], t.shape[1])
+        for n, s in zip(sizes, _bhs_strides(t, layout)):
+            if n > 1 and not 0 < 2 * s < 2 ** 40:
+                raise ValueError("the bfloat16 backward's TMA needs positive byte "
+                                 "strides below 2^40 on every dimension longer than 1")
+
+
 def reset_launches() -> None:
     """Zero every launch count."""
     for name in LAUNCHES:
@@ -124,10 +196,9 @@ def _library_bwd():
         from repro_torch.kernels import _build
 
         lib = _build.load(BWD_SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, pll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         lib.flash_attention_bwd.argtypes = (
-            [p] * 10 + [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [i, i, ctypes.c_float, i, p])
+            [p] * 10 + [i] * 6 + [pll, pll] + [i, i, i, ctypes.c_float, i, p])
         lib.flash_attention_bwd.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -266,8 +337,15 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True,
                   for t in (q, k, v))
     if B == 0 or Sq == 0 or H == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty(bwd_scratch_shape(q.dtype, B, H, Sq), dtype=torch.float32,
+                        device=q.device)
     strides += _strides((o, do), layout) + _strides((dq, dk, dv), layout)
+    maps, sq_pad = None, 0
+    if q.dtype == torch.bfloat16:
+        _check_tma_strides((q, k, v, do), layout)
+        plan = bwd_plan(B, H, Hk, Sq, Skv, D, strides)
+        args = [x for m in plan["maps"] for part in m for x in part]
+        maps, sq_pad = (ctypes.c_longlong * len(args))(*args), plan["sq_pad"]
     lib = _library_bwd()
     arr = (ctypes.c_longlong * len(strides))(*strides)
     with torch.cuda.device(q.device):
@@ -275,8 +353,8 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal: bool = True,
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), B, H, Hk, Sq, Skv, D, arr,
-            int(bool(causal)), int(window),
+            dv.data_ptr(), delta.data_ptr(), B, H, Hk, Sq, Skv, D, arr, maps,
+            sq_pad, int(bool(causal)), int(window),
             float(scale if scale is not None else 1.0 / math.sqrt(D)),
             _DTYPES[q.dtype], stream)
     _raise_on(err, lib, "flash_attention_bwd_error_string", "flash_attention_bwd")

@@ -46,9 +46,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
 )
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import (
     BWD_TILES,
+    BWD_WG_ROWS,
     TILES,
+    bwd_plan,
+    bwd_scratch_shape,
+    bwd_stats_ref,
     kv_tile_range,
     q_tile_range,
     tile_needs_mask,
@@ -160,8 +165,17 @@ WALK_IDS = ["sq{}_skv{}_{}_w{}".format(c[0], c[1], "causal" if c[2] else "full",
             for c in WALK_CASES]
 
 
-# K5's tiles and the dq pass of K5b (a block's q rows, the kv tile it walks).
-@pytest.mark.parametrize("tiles", sorted(set(TILES.values()) | set(BWD_TILES.values())),
+def _bwd_walks(pass_name):
+    """K5b's (own rows, walked tile) pairs of one pass: each dtype's block
+    tiles and, in bfloat16, a warpgroup's own rows against the
+    same walked tile."""
+    walks = {t[pass_name] for t in BWD_TILES.values()}
+    return walks | {(BWD_WG_ROWS, BWD_TILES[torch.bfloat16][pass_name][1])}
+
+
+# K5's tiles and the dq pass of K5b (a block's or a warpgroup's q rows, the
+# kv tile it walks).
+@pytest.mark.parametrize("tiles", sorted(set(TILES.values()) | _bwd_walks("dq")),
                          ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
 def test_kernel_tile_walk_covers_every_visible_pair(case, tiles):
@@ -184,7 +198,7 @@ def test_kernel_tile_walk_covers_every_visible_pair(case, tiles):
                 assert not tile.any(), (q0, tt)
 
 
-@pytest.mark.parametrize("tiles", sorted(set(BWD_TILES.values())),
+@pytest.mark.parametrize("tiles", sorted(_bwd_walks("dkdv")),
                          ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
 def test_bwd_kv_tile_walks_the_q_tiles_that_see_it(case, tiles):
@@ -208,6 +222,227 @@ def test_bwd_kv_tile_walks_the_q_tiles_that_see_it(case, tiles):
                     assert tile.shape == (bq, bk) and tile.all(), (k0, tt)
             else:
                 assert not tile.any(), (k0, tt)
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
+def test_bwd_warpgroup_walks_lie_in_their_block_walk(case):
+    """K5b's bfloat16 blocks stream the block's walk through the ring and
+    each warpgroup computes the part its own rows see: that part
+    lies inside the block's walk for both passes (a warpgroup whose rows
+    lie past the end has none)."""
+    Sq, Skv, causal, window = case
+    wg = BWD_WG_ROWS
+    own, walk = BWD_TILES[torch.bfloat16]["dq"]
+    for q0 in range(0, Sq, own):
+        beg, end = kv_tile_range(q0, Sq, Skv, causal, window, own, walk)
+        for qw0 in range(q0, q0 + own, wg):
+            if qw0 < Sq:
+                wb, we = kv_tile_range(qw0, Sq, Skv, causal, window, wg, walk)
+                assert beg <= wb and we <= end, (q0, qw0)
+    own, walk = BWD_TILES[torch.bfloat16]["dkdv"]
+    for k0 in range(0, Skv, own):
+        beg, end = q_tile_range(k0, Sq, Skv, causal, window, own, walk)
+        for kw0 in range(k0, k0 + own, wg):
+            if kw0 < Skv:
+                wb, we = q_tile_range(kw0, Sq, Skv, causal, window, wg, walk)
+                assert wb == we or (beg <= wb and we <= end), (k0, kw0)
+
+
+# ----------------------------------------------------------------------
+# K5b's bfloat16 host-side plan: the TMA maps and the row statistics
+# ----------------------------------------------------------------------
+def _tma_load(flat, dims, byte_strides, box, coords):
+    """What a TMA tile load reads: the ``box`` (innermost first) at
+    ``coords`` of the map (dims, byte strides of dims 1..3) over the bf16
+    storage ``flat`` (elements from the map's base), zeros out of bounds;
+    returned as (rows, columns)."""
+    idx = np.meshgrid(*[c + np.arange(n) for c, n in zip(coords, box)], indexing="ij")
+    inside = np.ones(idx[0].shape, dtype=bool)
+    off = idx[0].astype(np.int64)
+    for i, (x, n) in enumerate(zip(idx, dims)):
+        inside &= (x >= 0) & (x < n)
+        if i:
+            assert byte_strides[i - 1] % 16 == 0
+            off = off + x * (byte_strides[i - 1] // 2)
+    vals = np.where(inside, flat[np.where(inside, off, 0)], 0.0)
+    return vals.reshape(box[0], box[1]).T
+
+
+@pytest.mark.parametrize("D", [8, 32, 48, 64, 96, 120, 128])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_bwd_tensor_maps_read_each_operand_tile(layout, D):
+    """K5b's tensor map arguments (``bwd_plan``, what the wrapper passes)
+    against numpy's emulation of a TMA box load over the operand's
+    storage, for q as a view into a wider fused projection (the model's
+    layout) or a contiguous tensor: every (column atom, 64-row tile, head, batch) box is
+    the operand's tile, zero-padded past D and past the last row; every
+    byte stride a multiple of 16."""
+    B, H, Hk, Sq, Skv = 2, 4, 2, 100, 70
+    rng = np.random.default_rng(D)
+    if layout == "bshd":  # q, k, v as views of one (B, S, (H + 2 Hk) D) tensor
+        qkv = torch.as_tensor(rng.standard_normal((B, Sq, (H + 2 * Hk) * D)).astype(np.float32))
+        q = qkv[:, :, :H * D].unflatten(-1, (H, D))
+        flat, base = qkv.numpy().reshape(-1), 0
+        bhsd = q.transpose(1, 2)
+    else:
+        q = torch.as_tensor(rng.standard_normal((B, H, Sq, D)).astype(np.float32))
+        flat, base, bhsd = q.numpy().reshape(-1), 0, q
+    st = list(fa_kernel._bhs_strides(q, layout))
+    plan = bwd_plan(B, H, Hk, Sq, Skv, D, st * 8)
+    dims, strides, box = plan["maps"][0]
+    assert dims == [D, Sq, H, B] and box == [64, 64, 1, 1]
+    assert all(x % 16 == 0 and 0 < x < 2 ** 40 for x in strides)
+    kd = 64 if D <= 64 else 128
+    want = np.zeros((B, H, plan["sq_pad"], kd), np.float32)
+    want[:, :, :Sq, :D] = bhsd.numpy()
+    for b in range(B):
+        for h in range(H):
+            for r0 in range(0, plan["sq_pad"], 64):
+                for atom in range(kd // 64):
+                    got = _tma_load(flat[base:], dims, strides, box, (64 * atom, r0, h, b))
+                    np.testing.assert_array_equal(
+                        got, want[b, h, r0:r0 + 64, 64 * atom:64 * atom + 64])
+
+
+def test_bwd_plan_grids_scratch_and_shared_memory():
+    """K5b's bfloat16 plan pads the row statistics to Sq rounded up to 128
+    rows, the scratch the wrapper allocates, so that the dq grid (padded
+    rows over a block's own rows) and the resident rows a block stages (in
+    box-row loads) cover every row and read no statistic past the scratch;
+    and it names the q, k, v and dO maps with their rows and heads."""
+    own = BWD_TILES[torch.bfloat16]["dq"][0]
+    for B, H, Hk, Sq, Skv, D in ((4, 16, 8, 4096, 4096, 128), (4, 25, 5, 4096, 4096, 64),
+                                 (2, 25, 5, 100, 4096, 64), (1, 4, 2, 1, 1, 8),
+                                 (1, 6, 2, 130, 130, 120)):
+        plan = bwd_plan(B, H, Hk, Sq, Skv, D, [8] * 24)
+        assert plan["sq_pad"] == -(-Sq // 128) * 128 >= Sq
+        assert bwd_scratch_shape(torch.bfloat16, B, H, Sq) == (B * H, plan["sq_pad"], 2)
+        assert plan["sq_pad"] % own == 0 and plan["sq_pad"] - Sq < own
+        assert [m[0] for m in plan["maps"]] == [[D, Sq, H, B], [D, Skv, Hk, B],
+                                                [D, Skv, Hk, B], [D, Sq, H, B]]
+        assert all(own % m[2][1] == 0 and m[2][0] == 64 for m in plan["maps"])
+    assert bwd_scratch_shape(torch.float32, 2, 3, 5) == (2, 3, 5)
+
+
+def test_bwd_tma_stride_rule_refuses_an_expanded_operand():
+    """TMA takes no zero stride on a dimension longer than 1 (a kv head
+    broadcast by ``expand``); a zero stride on a dimension of extent 1 is
+    fine (the map takes 16 there)."""
+    k = torch.zeros(2, 1, 5, 64).expand(2, 3, 5, 64)
+    with pytest.raises(ValueError, match="TMA"):
+        fa_kernel._check_tma_strides((k,), "bhsd")
+    fa_kernel._check_tma_strides((torch.zeros(2, 1, 5, 64).expand(2, 1, 5, 64),), "bhsd")
+    assert fa_kernel.bwd_tensor_map(64, 5, 1, 2, (320, 0, 64))[1] == [128, 16, 640]
+
+
+def _emulate_bwd_bf16(q, k, v, o, lse, do, causal, window):
+    """A numpy mirror of K5b's bfloat16 passes in (B, H, S, D): the padded
+    row statistics, the blocks' walks and each warpgroup's part of them,
+    the exp2 form of P, the mask only where ``tile_needs_mask`` says, and P
+    and dS rounded once to bf16 as the A operands of the second products;
+    float32 sums."""
+    B, H, Sq, D = q.shape
+    Hk, Skv = k.shape[1], k.shape[2]
+    G, sc, off = H // Hk, 1.0 / np.sqrt(D), Skv - Sq
+    stats = bwd_stats_ref(o, lse, do).numpy().reshape(B, H, -1, 2)
+    qn, kn, vn, gn = (x.float().numpy() for x in (q, k, v, do))
+    bf = lambda x: torch.as_tensor(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    own, wk = BWD_TILES[torch.bfloat16]["dq"]
+    wg = BWD_WG_ROWS
+    vis = _visible(Sq, Skv, causal, window)
+
+    def probs(s, lse2, rows, keys, masked):
+        p = np.exp2(s * sc * np.log2(np.e) - lse2).astype(np.float32)
+        if masked:
+            ok = np.zeros(p.shape, dtype=bool)
+            r_in, k_in = rows < Sq, keys < Skv
+            ok[np.ix_(r_in, k_in)] = vis[np.ix_(rows[r_in], keys[k_in])]
+            p = np.where(ok, p, 0.0)
+        return p
+
+    dq = np.zeros((B, H, Sq, D), np.float32)
+    dk = np.zeros((B, Hk, Skv, D), np.float32)
+    dv = np.zeros_like(dk)
+    pad = lambda x, n: np.pad(x, ((0, max(0, n - len(x))), (0, 0)))[:n]  # noqa: E731
+    for b in range(B):
+        for h in range(H):
+            hk = h // G
+            for q0 in range(0, Sq, own):
+                t_beg, t_end = kv_tile_range(q0, Sq, Skv, causal, window, own, wk)
+                for qw0 in range(q0, min(q0 + own, Sq), wg):
+                    wb, we = kv_tile_range(qw0, Sq, Skv, causal, window, wg, wk)
+                    rows = np.arange(qw0, qw0 + wg)
+                    st = stats[b, h, qw0:qw0 + wg]
+                    acc = np.zeros((wg, D), np.float32)
+                    for t in range(max(t_beg, wb), min(t_end, we)):
+                        keys = np.arange(t * wk, t * wk + wk)
+                        kt, vt = pad(kn[b, hk, t * wk:], wk), pad(vn[b, hk, t * wk:], wk)
+                        s = pad(qn[b, h, qw0:], wg) @ kt.T
+                        dp = pad(gn[b, h, qw0:], wg) @ vt.T
+                        p = probs(s, st[:, :1], rows, keys, tile_needs_mask(
+                            qw0, t * wk, Sq, Skv, causal, window, wg, wk))
+                        acc += bf(p * (dp - st[:, 1:])) @ kt
+                    n = min(wg, Sq - qw0)
+                    dq[b, h, qw0:qw0 + n] = acc[:n] * sc
+    own, wk = BWD_TILES[torch.bfloat16]["dkdv"]
+    for b in range(B):
+        for hk in range(Hk):
+            for k0 in range(0, Skv, own):
+                t_beg, t_end = q_tile_range(k0, Sq, Skv, causal, window, own, wk)
+                for kw0 in range(k0, min(k0 + own, Skv), wg):
+                    wb, we = q_tile_range(kw0, Sq, Skv, causal, window, wg, wk)
+                    keys = np.arange(kw0, kw0 + wg)
+                    kt, vt = pad(kn[b, hk, kw0:], wg), pad(vn[b, hk, kw0:], wg)
+                    ak, av = np.zeros((wg, D), np.float32), np.zeros((wg, D), np.float32)
+                    for h in range(hk * G, hk * G + G):
+                        for t in range(t_beg, t_end):
+                            if not wb <= t < we:
+                                continue
+                            q0 = t * wk
+                            rows = np.arange(q0, q0 + wk)
+                            qt, gt = pad(qn[b, h, q0:], wk), pad(gn[b, h, q0:], wk)
+                            st = stats[b, h, q0:q0 + wk]
+                            masked = q0 + wk > Sq or tile_needs_mask(
+                                q0, kw0, Sq, Skv, causal, window, wk, wg)
+                            pt = probs(qt @ kt.T, st[:, :1], rows, keys, masked).T
+                            av += bf(pt) @ gt
+                            ak += bf(pt * (vt @ gt.T - st[:, 1].T)) @ qt
+                    n = min(wg, Skv - kw0)
+                    dk[b, hk, kw0:kw0 + n] = ak[:n] * sc
+                    dv[b, hk, kw0:kw0 + n] = av[:n]
+    return dq, dk, dv
+
+
+# (name, B, H, Hk, Sq, Skv, D, causal, window): the tiles' edges (Sq and
+# Skv not multiples of 128, a key block no row sees, GQA 5, a window).
+EMU_CASES = [
+    ("causal_g2", 1, 4, 2, 200, 200, 32, True, 0),
+    ("skv_ragged_g5_window", 1, 5, 1, 150, 300, 16, True, 40),
+    ("unseen_key_block", 1, 2, 1, 20, 300, 16, True, 8),
+    ("noncausal_ragged", 1, 4, 2, 70, 133, 24, False, 0),
+    ("window_no_causal", 1, 2, 2, 190, 190, 8, False, 33),
+]
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=[c[0] for c in EMU_CASES])
+def test_bwd_bf16_pass_mirror_matches_the_plain_backward(case):
+    """The numpy mirror of K5b's bfloat16 passes (walks, warpgroup parts,
+    padded statistics, mask, P and dS rounded once to bf16) against the
+    plain backward on bf16 inputs, to the bf16 tolerance of each gradient's
+    largest entry; keys no row sees get exactly zero dk and dv."""
+    _, B, H, Hk, Sq, Skv, D, causal, window = case
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+                   for s in ((B, H, Sq, D), (B, Hk, Skv, D), (B, Hk, Skv, D), (B, H, Sq, D)))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_lse_ref(q, k, v, **kw)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = _emulate_bwd_bf16(q, k, v, o, lse, do, causal, window)
+    for name, g, w in zip("qkv", got, want):
+        w = w.float().numpy()
+        assert np.abs(g - w).max() <= 2e-2 * np.abs(w).max(), name
+    seen = _visible(Sq, Skv, causal, window).any(0)
+    assert not got[1][:, :, ~seen].any() and not got[2][:, :, ~seen].any()
 
 
 # ----------------------------------------------------------------------
