@@ -5,6 +5,7 @@ hooks, negatives and host discretization (bit-equal to ``repro.core``; the
 dict baseline ``discretize_naive`` too, and ``discretize_device`` on the card),
 plus the torch ``DeviceRecencySampler`` and ``DeviceUniformSampler``, the
 host ``UniformSampler``, the link recipe's recency and uniform branches, the
+node-property and density-of-states recipes, the
 ``PrefetchLoader`` that stages batches on a side CUDA stream, and the DTDG
 ``SnapshotTensor`` built on the device by ``snapshot_tensor`` with its
 snapshot recipe.
@@ -27,8 +28,10 @@ from repro_torch.core.loader import DGDataLoader, PrefetchLoader, snapshot_tenso
 from repro_torch.core.negatives import NegativeEdgeSampler, snapshot_negatives
 from repro_torch.core.recipes import (
     EVAL_KEY,
+    RECIPE_ANALYTICS_DOS,
     RECIPE_DTDG_SNAPSHOT,
     RECIPE_TGB_LINK,
+    RECIPE_TGB_NODE,
     TRAIN_KEY,
     RecipeRegistry,
 )
@@ -63,8 +66,10 @@ __all__ = [
     "resolve_order",
     "snapshot_negatives",
     "snapshot_tensor",
+    "RECIPE_ANALYTICS_DOS",
     "RECIPE_DTDG_SNAPSHOT",
     "RECIPE_TGB_LINK",
+    "RECIPE_TGB_NODE",
     "TRAIN_KEY",
     "EVAL_KEY",
 ]

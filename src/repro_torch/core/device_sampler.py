@@ -212,6 +212,13 @@ class DeviceRecencySampler:
         self.state = {"buf": buf, "cc": cc}
 
     @property
+    def buffer_ids(self) -> torch.Tensor:
+        """The packed buffer's neighbor-id rows, ``(rows, K)`` int32: on one
+        device ``N + 1`` rows (sink last); sharded, this rank's
+        ``rows_per_shard + 1`` rows (its sink last)."""
+        return self.state["buf"][..., 0]
+
+    @property
     def packed_buffer(self) -> torch.Tensor:
         """Packed rows (id, time, edge id) — what ``fused_temporal_layer``
         consumes; never mutated in place. One device: ``(N+1, K, 3)``, sink

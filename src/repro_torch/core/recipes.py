@@ -8,8 +8,11 @@ host (``SamplerSpec(kind="recency")``, the reference's default) or the
 device (``device=True``), and the uniform sampler (``kind="uniform"``) on
 either, the device samplers also node-sharded over a mesh of ranks
 (``shards`` / ``mesh=``). ``RECIPE_DTDG_SNAPSHOT`` builds
-the DTDG snapshot link pipeline's per-snapshot negatives. The other recipes
-are not part of the port yet.
+the DTDG snapshot link pipeline's per-snapshot negatives.
+``RECIPE_TGB_NODE`` builds the node-property pipeline of the reference
+(padding, host recency neighbors of the positive events only, edge-feature
+lookup, the device transfer) and ``RECIPE_ANALYTICS_DOS`` the
+density-of-states analytics hook.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from repro_torch.core.hooks import HookManager
 from repro_torch.device import resolve_device
 from repro_torch.core.tg_hooks import (
     DeviceRecencyNeighborHook,
+    DOSEstimateHook,
     DeviceTransferHook,
     DeviceUniformNeighborHook,
     EdgeFeatureLookupHook,
@@ -34,7 +38,9 @@ from repro_torch.core.tg_hooks import (
 )
 
 RECIPE_TGB_LINK = "tgb_link"
+RECIPE_TGB_NODE = "tgb_node"
 RECIPE_DTDG_SNAPSHOT = "dtdg_snapshot"
+RECIPE_ANALYTICS_DOS = "analytics_dos"
 
 TRAIN_KEY = "train"
 EVAL_KEY = "eval"
@@ -152,6 +158,27 @@ def _tgb_link(
     return m
 
 
+@RecipeRegistry.register(RECIPE_TGB_NODE)
+def _tgb_node(
+    num_nodes: int,
+    k: int = 20,
+    batch_size: int = 200,
+    edge_feats: Optional[np.ndarray] = None,
+    edge_feat_dim: int = 0,
+    device="cuda",
+) -> HookManager:
+    """Build the node-property hook pipeline: padding, the host recency
+    neighbors of the batch's positive events (no negatives), the
+    edge-feature lookup and the device transfer."""
+    m = HookManager()
+    m.register(PadBatchHook(batch_size))
+    m.register(RecencyNeighborHook(num_nodes, k, include_negatives=False,
+                                   dedup=True))
+    m.register(EdgeFeatureLookupHook(edge_feats, edge_feat_dim))
+    m.register(DeviceTransferHook(device))
+    return m
+
+
 @RecipeRegistry.register(RECIPE_DTDG_SNAPSHOT)
 def _dtdg_snapshot(
     num_nodes: Optional[int] = None,
@@ -177,4 +204,13 @@ def _dtdg_snapshot(
                                         seed=seed, device=device),
                    key=EVAL_KEY)
     m.register(DeviceTransferHook(device))
+    return m
+
+
+@RecipeRegistry.register(RECIPE_ANALYTICS_DOS)
+def _analytics_dos(num_nodes: int, num_moments: int = 10, seed: int = 0) -> HookManager:
+    """Build the analytics pipeline: the batch's density-of-states
+    moments (``DOSEstimateHook``)."""
+    m = HookManager()
+    m.register(DOSEstimateHook(num_nodes, num_moments=num_moments, seed=seed))
     return m

@@ -8,8 +8,9 @@ attention), uniform neighbors on the host (``UniformNeighborHook``) or on
 the device (``DeviceUniformNeighborHook``), one or two hops each,
 edge-feature lookup and the device transfer. Negatives are drawn with numpy
 exactly as in the reference, so they are bit-equal.
-``SnapshotNegativeHook`` serves the DTDG snapshot recipe. The analytics
-hooks are not part of the port yet.
+``SnapshotNegativeHook`` serves the DTDG snapshot recipe and
+``DOSEstimateHook`` the density-of-states analytics recipe (numpy, its probe
+draws bit-equal to the reference's).
 """
 
 from __future__ import annotations
@@ -142,6 +143,12 @@ def _produces(num_hops: int) -> set:
     return out
 
 
+def _requires(include_negatives: bool) -> set:
+    """The attributes a neighbor hook reads: the events, and ``neg`` when
+    it seeds the negatives too."""
+    return {"src", "dst", "time"} | ({"neg"} if include_negatives else set())
+
+
 def _seed_rows(batch, include_negatives: bool):
     """The batch's seeds ``[src | dst | neg...]`` and their query times, as
     host int64 arrays."""
@@ -171,6 +178,12 @@ class RecencyNeighborHook(Hook):
     distinct frontier node sampled once from the same (pre-update) buffers,
     padded frontier slots set to -1 / 0 / -1 / False.
 
+    The reference's switches: ``include_negatives=False`` seeds the
+    positive events only (``neg`` is then neither required nor read);
+    ``dedup=False`` samples every seed row on its own (the same rows);
+    ``update_buffer=False`` leaves the buffers as they were (the sampler's
+    state is unchanged after the batch).
+
     The sampling runs in numpy on the host (``RecencySampler``). The
     recipe's contract-free ``DeviceTransferHook`` runs before this hook
     (``resolve_order``), so the batch's events may already be on the device:
@@ -179,14 +192,30 @@ class RecencyNeighborHook(Hook):
     are those the reference's host hook gives.
     """
 
-    def __init__(self, num_nodes: int, k: int, num_hops: int = 1):
+    def __init__(self, num_nodes: int, k: int, num_hops: int = 1,
+                 include_negatives: bool = True, dedup: bool = True,
+                 update_buffer: bool = True):
         if num_hops not in (1, 2):
             raise ValueError("num_hops must be 1 or 2")
-        super().__init__(requires={"src", "dst", "time", "neg"},
+        super().__init__(requires=_requires(include_negatives),
                          produces=_produces(num_hops))
         self.sampler = RecencySampler(num_nodes, k)
         self.k = k
         self.num_hops = num_hops
+        self.include_negatives = include_negatives
+        self.dedup = dedup
+        self.update_buffer = update_buffer
+
+    def _sample(self, nodes: np.ndarray):
+        """The neighborhoods of ``nodes``: each distinct node sampled once
+        and gathered back (``dedup``), or every row sampled on its own."""
+        if not self.dedup:
+            blk = self.sampler.sample(nodes)
+            return blk.nbr_ids, blk.nbr_times, blk.nbr_eids, blk.mask
+        uniq, inverse = np.unique(nodes, return_inverse=True)
+        blk = self.sampler.sample(uniq)
+        return (blk.nbr_ids[inverse], blk.nbr_times[inverse],
+                blk.nbr_eids[inverse], blk.mask[inverse])
 
     def reset_state(self) -> None:
         """Clear the host circular buffers (start of an epoch)."""
@@ -205,25 +234,23 @@ class RecencyNeighborHook(Hook):
         to the sampler."""
         ref = batch["src"]
         src, dst, t = _host(ref), _host(batch["dst"]), _host(batch["time"])
-        seed_nodes, seed_times = _seed_rows(batch, True)
-        uniq, inverse = np.unique(seed_nodes, return_inverse=True)
-        blk = self.sampler.sample(uniq)
-        nbr_ids = blk.nbr_ids[inverse]
+        seed_nodes, seed_times = _seed_rows(batch, self.include_negatives)
+        nbr_ids, nbr_times, nbr_eids, nbr_mask = self._sample(seed_nodes)
         out = {"seed_nodes": seed_nodes, "seed_times": seed_times,
-               "nbr_ids": nbr_ids, "nbr_times": blk.nbr_times[inverse],
-               "nbr_eids": blk.nbr_eids[inverse], "nbr_mask": blk.mask[inverse]}
+               "nbr_ids": nbr_ids, "nbr_times": nbr_times,
+               "nbr_eids": nbr_eids, "nbr_mask": nbr_mask}
         if self.num_hops == 2:
             flat = nbr_ids.reshape(-1)
-            uniq2, inv2 = np.unique(np.where(flat >= 0, flat, 0),
-                                    return_inverse=True)
-            blk2 = self.sampler.sample(uniq2)
+            ids2, t2, e2, m2 = self._sample(np.where(flat >= 0, flat, 0))
             pad = (flat < 0)[:, None]
-            out.update(nbr2_ids=np.where(pad, -1, blk2.nbr_ids[inv2]),
-                       nbr2_times=np.where(pad, 0, blk2.nbr_times[inv2]),
-                       nbr2_eids=np.where(pad, -1, blk2.nbr_eids[inv2]),
-                       nbr2_mask=np.where(pad, False, blk2.mask[inv2]))
+            out.update(nbr2_ids=np.where(pad, -1, ids2),
+                       nbr2_times=np.where(pad, 0, t2),
+                       nbr2_eids=np.where(pad, -1, e2),
+                       nbr2_mask=np.where(pad, False, m2))
         for key, x in out.items():
             batch[key] = _like(ref, x)
+        if not self.update_buffer:
+            return batch
 
         eids = batch.meta.get("eids")
         if "batch_mask" in batch:  # exclude padded events from state
@@ -254,9 +281,13 @@ class DeviceRecencyNeighborHook(Hook):
     ``edge_feats`` is given. With ``mesh`` the sampler is node-sharded over
     ``mesh_axis`` and ``nbr_buf`` is this rank's block (read by the
     shard-aware fused layer; the recipe leaves it off unless asked).
+    ``include_negatives=False`` seeds the positive events only and
+    ``update_buffer=False`` leaves the sampler's state as it was, as in the
+    reference.
     """
 
     def __init__(self, num_nodes: int, k: int, num_hops: int = 1,
+                 include_negatives: bool = True, update_buffer: bool = True,
                  device="cuda", expose_buffer: Optional[bool] = None,
                  edge_feats=None, mesh=None, mesh_axis: str = "data"):
         if num_hops not in (1, 2):
@@ -268,12 +299,14 @@ class DeviceRecencyNeighborHook(Hook):
             if edge_feats is not None:
                 produces |= {"edge_feat_table"}
         # Shared checkpoint key with the host twin of the reference.
-        super().__init__(requires={"src", "dst", "time", "neg"},
+        super().__init__(requires=_requires(include_negatives),
                          produces=produces, state_key="RecencyNeighborHook")
         self.sampler = DeviceRecencySampler(num_nodes, k, device=device,
                                             mesh=mesh, mesh_axis=mesh_axis)
         self.k = k
         self.num_hops = num_hops
+        self.include_negatives = include_negatives
+        self.update_buffer = update_buffer
         self.expose_buffer = expose_buffer
         self._edge_table = None
         if expose_buffer and edge_feats is not None:
@@ -300,7 +333,7 @@ class DeviceRecencyNeighborHook(Hook):
             batch["nbr_buf"] = self.sampler.packed_buffer
             if self._edge_table is not None:
                 batch["edge_feat_table"] = self._edge_table
-        seed_nodes, seed_times = _seed_rows(batch, True)
+        seed_nodes, seed_times = _seed_rows(batch, self.include_negatives)
         blk = self.sampler.sample(seed_nodes)
         batch["seed_nodes"], batch["seed_times"] = seed_nodes, seed_times
         batch["nbr_ids"], batch["nbr_times"] = blk.nbr_ids, blk.nbr_times
@@ -313,6 +346,8 @@ class DeviceRecencyNeighborHook(Hook):
             batch["nbr2_times"] = torch.where(pad, 0, blk2.nbr_times)
             batch["nbr2_eids"] = torch.where(pad, -1, blk2.nbr_eids)
             batch["nbr2_mask"] = torch.where(pad, False, blk2.mask)
+        if not self.update_buffer:
+            return batch
 
         eids = batch.meta.get("eids")
         n = len(src)
@@ -346,8 +381,8 @@ class UniformNeighborHook(Hook):
                  checkpoint_adjacency: bool = True):
         if num_hops not in (1, 2):
             raise ValueError("num_hops must be 1 or 2")
-        requires = {"src", "dst", "time"} | ({"neg"} if include_negatives else set())
-        super().__init__(requires=requires, produces=_produces(num_hops),
+        super().__init__(requires=_requires(include_negatives),
+                         produces=_produces(num_hops),
                          state_key="UniformNeighborHook")
         self.sampler = self._make_sampler(num_nodes, k, seed,
                                           checkpoint_adjacency)
@@ -599,3 +634,55 @@ class DeviceTransferHook(Hook):
 
     def __call__(self, batch: Batch) -> Batch:
         return stage_batch(batch, self._device)
+
+
+class DOSEstimateHook(Hook):
+    """Analytics: the spectral density of states of the batch's interaction
+    graph by Hutchinson moment estimation (paper Fig. 3's recipe).
+
+    Produces ``dos``: (num_moments,) float32 Chebyshev moment estimates of
+    the normalized adjacency's spectrum, from ``num_probes`` Rademacher
+    probes. The probes come from one ``default_rng(seed)`` that persists
+    across batches and epochs, so a sequence of batches gives the
+    reference's moments bit for bit.
+    """
+
+    def __init__(self, num_nodes: int, num_moments: int = 10, num_probes: int = 4,
+                 seed: int = 0):
+        super().__init__(requires={"src", "dst"}, produces={"dos"})
+        self.num_nodes = num_nodes
+        self.num_moments = num_moments
+        self.num_probes = num_probes
+        self._rng = np.random.default_rng(seed)
+
+    def reset_state(self) -> None:
+        """Stateless across epochs (the probe RNG persists on purpose)."""
+
+    def __call__(self, batch: Batch) -> Batch:
+        src, dst = _host(batch["src"]), _host(batch["dst"])
+        nodes, idx = np.unique(np.concatenate([src, dst]), return_inverse=True)
+        n = len(nodes)
+        if n == 0:
+            batch["dos"] = np.zeros(self.num_moments, dtype=np.float32)
+            return batch
+        r, c = idx[:len(src)], idx[len(src):]
+        deg = np.bincount(idx, minlength=n).astype(np.float64)
+        dinv = 1.0 / np.sqrt(np.maximum(deg, 1.0))
+        w = (dinv[r] * dinv[c])[:, None]
+
+        def matvec(x):
+            y = np.zeros_like(x)
+            np.add.at(y, r, w * x[c])
+            np.add.at(y, c, w * x[r])
+            return y
+
+        z = self._rng.choice([-1.0, 1.0], size=(n, self.num_probes))
+        scale = n * self.num_probes
+        tkm1, tk = z, matvec(z)
+        moments = [float((z * tkm1).sum() / scale), float((z * tk).sum() / scale)]
+        for _ in range(self.num_moments - 2):
+            tkp1 = 2.0 * matvec(tk) - tkm1
+            moments.append(float((z * tkp1).sum() / scale))
+            tkm1, tk = tk, tkp1
+        batch["dos"] = np.asarray(moments[: self.num_moments], dtype=np.float32)
+        return batch

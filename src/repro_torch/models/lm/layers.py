@@ -10,9 +10,11 @@ prefill and the training forward are reached here: ``self_attention`` and
 ``ssd_mix`` take ``mode``, and on a CUDA tensor with ``mode="auto"`` (or
 ``"kernel"``) attention runs K5 (``kernels.flash_attention``, both of the
 reference's routes, the window as K5's mask; differentiable, its gradient
-the kernel K5b) and the SSD scan runs K6 (``kernels.ssd_chunk``; forward
-only, so a call there that needs a gradient raises); a CUDA tensor
-launches the kernel or raises. ``mode="ref"``, and any CPU tensor, runs the
+the kernel K5b) and the SSD scan runs K6 (``kernels.ssd_chunk``;
+differentiable, its gradient the kernel K6b); a CUDA tensor launches the
+kernel or raises. A training step on the card thus runs, per layer, K5 and
+K5b (dense), K6 and K6b (ssm), or both pairs (hybrid; under remat each
+forward kernel twice). ``mode="ref"``, and any CPU tensor, runs the
 reference's own algorithms in torch (``flash_attention``,
 ``swa_flash_attention``, chunked ``ssd_mix``), differentiated by autograd.
 The decode step stays plain PyTorch, as the reference's is plain jnp:
@@ -461,9 +463,11 @@ def ssd_mix(cfg: ArchConfig, xh, dt, A, Bm, Cm, chunk: int = 256,
     ``chunk`` is the kernel's own (bfloat16: the same chunk-parallel
     algorithm in chunks of 128, its products on the tensor cores with
     float32 sums and float32 operands as two bfloat16 terms; float32: a
-    sequential walk in chunks of 32 on the CUDA cores). Groups are
-    broadcast in the kernel; no ``init_state``: the prefill starts from
-    zeros, and a CUDA call with one raises. Otherwise the reference's
+    sequential walk in chunks of 32 on the CUDA cores); where autograd needs
+    its gradient, the backward kernel K6b gives it (``ssd_ops._SSDChunkFn``).
+    Groups are broadcast in the kernels; no ``init_state``: the prefill and
+    the training step start from zeros, and a CUDA call with one raises.
+    Otherwise the reference's
     algorithm: matmul-heavy einsums in the INPUT dtype with float32 decay
     math, B/C broadcast to heads through a split (G, H/G) head axis, and the
     inter-chunk recurrence in float32.

@@ -25,6 +25,13 @@ def glorot(gen, shape, device="cpu"):
     return _normal(gen, shape, device) * math.sqrt(2.0 / (fan_in + fan_out))
 
 
+def lecun(gen, shape, device="cpu"):
+    """LeCun normal: N(0, 1 / fan_in), fan_in the second-to-last axis (the
+    last for a vector)."""
+    fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+    return _normal(gen, shape, device) * math.sqrt(1.0 / fan_in)
+
+
 def normal(gen, shape, stddev=0.02, device="cpu"):
     """N(0, stddev^2)."""
     return _normal(gen, shape, device) * stddev
@@ -33,3 +40,8 @@ def normal(gen, shape, stddev=0.02, device="cpu"):
 def zeros(_gen, shape, device="cpu"):
     """All zeros (draws nothing)."""
     return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def ones(_gen, shape, device="cpu"):
+    """All ones (draws nothing)."""
+    return torch.ones(shape, dtype=torch.float32, device=device)

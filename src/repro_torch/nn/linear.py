@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.nn.init import glorot, zeros
+from repro_torch.nn.init import glorot, normal, zeros
 
 
 def dense_init(gen, d_in: int, d_out: int, bias: bool = True, device="cpu"):
@@ -24,3 +24,13 @@ def dense(params, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+def embedding_init(gen, num: int, dim: int, device="cpu"):
+    """An N(0, 0.02^2) ``table`` (num, dim)."""
+    return {"table": normal(gen, (num, dim), 0.02, device)}
+
+
+def embedding(params, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of the table."""
+    return params["table"][ids]

@@ -48,11 +48,14 @@ def adamw_init(params):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any]:
+def adamw_update(params, grads, state, cfg: AdamWConfig,
+                 lr_scale=1.0) -> Tuple[Any, Any]:
     """One AdamW step. Returns ``(params, state)``: the same parameter
     tensors, updated in place, and the state with its moments updated in
     place and a new step tensor. ``params`` and ``grads`` (which mirrors
-    them) may be float32 or bfloat16: the arithmetic is float32."""
+    them) may be float32 or bfloat16: the arithmetic is float32.
+    ``lr_scale`` multiplies ``cfg.lr`` (a schedule's value), as in the
+    reference."""
     step = state["step"] + 1
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
@@ -70,5 +73,5 @@ def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Any]:
     delta = div(div(mu, bc1), add(torch._foreach_sqrt(div(nu, bc2)), cfg.eps))
     if cfg.weight_decay:
         delta = add(delta, mul([x.float() for x in p], cfg.weight_decay))
-    torch._foreach_sub_(p, mul(delta, cfg.lr))
+    torch._foreach_sub_(p, mul(delta, cfg.lr * lr_scale))
     return params, {"mu": state["mu"], "nu": state["nu"], "step": step}

@@ -1,8 +1,12 @@
 """The LM training step: loss, gradient, clip and AdamW (the reference's
 ``repro.train.lm_train``).
 
-On the card every attention of the step runs K5 forward and K5b backward
-(``mode="auto"``); ``mode="ref"`` runs the plain versions. Parameters may be
+On the card (``mode="auto"``) a step runs, per layer, the kernels of its
+family: dense (qwen3) K5 forward and K5b backward for its attention; ssm
+(mamba2) K6 forward and K6b backward for its SSD scan; hybrid (hymba) both
+pairs, attention and scan side by side. Under remat (``cfg.remat``) each
+layer's forward runs twice, so a step launches K5 or K6 twice a layer and
+K5b or K6b once. ``mode="ref"`` runs the plain versions. Parameters may be
 bfloat16 (the configs' default) with float32 AdamW moments.
 """
 

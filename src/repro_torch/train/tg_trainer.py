@@ -6,7 +6,8 @@ legacy sampler kwargs, which map onto ``SamplerSpec`` as in
 ``repro.train.loop.CTDGLinkPipeline``: ``sampler=`` -> ``kind``,
 ``device_sampling=`` -> ``device``, ``k=`` -> ``k``, ``prefetch=`` ->
 ``prefetch``, ``uniform_checkpoint_adjacency=`` ->
-``checkpoint_adjacency`` (an explicit ``sampler_spec`` wins).
+``checkpoint_adjacency`` (an explicit ``sampler_spec`` wins); ``store=``
+and ``data_shards=`` go to the pipeline as they are.
 ``SnapshotLinkTrainer`` is ``DTDGLinkPipeline``. New code declares
 experiments through ``repro_torch.tg.Experiment``.
 """
@@ -55,8 +56,10 @@ class LinkPredictionTrainer(CTDGLinkPipeline):
         val_ratio: float = 0.15,
         test_ratio: float = 0.15,
         fused=None,
+        store=None,
         telemetry: Optional[Telemetry] = None,
         device="cuda",
+        data_shards: int = 1,
     ):
         spec = sampler_spec or legacy_sampler_spec(
             sampler, k, device_sampling, prefetch, uniform_checkpoint_adjacency)
@@ -64,4 +67,5 @@ class LinkPredictionTrainer(CTDGLinkPipeline):
             model_name, data, batch_size=batch_size, k=k, lr=lr,
             eval_negatives=eval_negatives, seed=seed, model_kwargs=model_kwargs,
             sampler_spec=spec, val_ratio=val_ratio, test_ratio=test_ratio,
-            fused=fused, telemetry=telemetry, device=device)
+            fused=fused, store=store, telemetry=telemetry, device=device,
+            data_shards=data_shards)

@@ -91,7 +91,8 @@ def recency_program(p):
     pairs = list(zip(p["batches"], p["seeds"]))
     res = {"rows_per_shard": sh.rows_per_shard,
            "block_rows": int(sh.packed_buffer.shape[0]),
-           "samples": replay(sh, pairs), "state": sh.state_dict()}
+           "samples": replay(sh, pairs), "state": sh.state_dict(),
+           "buffer_ids": _np(sh.buffer_ids), "rank": dist.get_rank()}
     sh.load_state_dict(p["state1"])
     res["resumed"] = replay(sh, pairs[1:])
     one = DeviceRecencySampler(p["N"], p["K"], device="cpu")

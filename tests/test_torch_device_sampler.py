@@ -93,6 +93,20 @@ def test_load_state_dict_round_trips():
                                   other.sample(np.arange(30)).nbr_ids.numpy())
 
 
+def test_buffer_ids_are_the_reference_rows():
+    """``buffer_ids`` is the packed buffer's id channel, node rows equal to
+    the reference's (the sink row, last, holds whatever padding wrote)."""
+    rng = np.random.default_rng(5)
+    js, ts = JaxSampler(30, 4), DeviceRecencySampler(30, 4, device="cpu")
+    for src, dst, t, eids, valid in _stream(rng, 30, 3, 20, hot=True, pad=True):
+        js.update(src, dst, t, eids, valid=valid)
+        ts.update(src, dst, t, eids, valid=valid)
+    ids = ts.buffer_ids
+    assert ids.shape == (31, 4) and ids.dtype == torch.int32
+    assert torch.equal(ids, ts.packed_buffer[..., 0])
+    np.testing.assert_array_equal(ids[:-1].numpy(), np.asarray(js.buffer_ids)[:-1])
+
+
 def _hook_batch(src, dst, t, neg, mask):
     b = Batch({"src": src, "dst": dst, "time": t, "neg": neg,
                "batch_mask": mask}, meta={"eids": np.arange(len(src))})

@@ -224,6 +224,29 @@ def test_legacy_kwargs_give_the_reference_sampler_spec(case):
     assert tt.sampler_spec.k == kw["k"] == tt.cfg.k
 
 
+def test_legacy_trainer_takes_the_reference_kwargs_and_passes_store_and_shards(monkeypatch):
+    """The reference's trainer is a bare alias of its pipeline: each of its
+    keyword arguments is one of the port's trainer's, and ``store=`` and
+    ``data_shards=`` reach ``CTDGLinkPipeline`` as given."""
+    import inspect
+
+    ours = inspect.signature(LinkPredictionTrainer.__init__).parameters
+    theirs = inspect.signature(JaxTrainer.__init__).parameters
+    assert set(theirs) <= set(ours), set(theirs) - set(ours)
+    seen = {}
+
+    def spy(self, *a, **kw):
+        seen.update(kw)
+
+    monkeypatch.setattr(tg_trainer.CTDGLinkPipeline, "__init__", spy)
+    store = object()
+    LinkPredictionTrainer("tgat", None, store=store, data_shards=2, device="cpu")
+    assert seen["store"] is store and seen["data_shards"] == 2
+    seen.clear()
+    LinkPredictionTrainer("tgat", None, device="cpu")
+    assert seen["store"] is None and seen["data_shards"] == 1
+
+
 def test_legacy_uniform_sampler_maps_and_is_not_ported_yet():
     """The name is kept from the slices before the uniform sampler was
     ported. The legacy ``sampler="uniform"`` kwargs map to the reference's

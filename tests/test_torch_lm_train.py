@@ -12,6 +12,9 @@
 * One ``train.lm_train.make_train_step`` step against the reference's, with
   ``accum_steps`` 1 and 2 and a ``clip_norm`` below the gradient's norm:
   loss, ``grad_norm``, the new parameters, ``mu``, ``nu`` and ``step``.
+* Reduced mamba2-780m and hymba-1.5b steps through the kernel seams (K6
+  and K6b, hymba also K5 and K5b, their plain versions stood in) against
+  the plain step: the launches a step, loss, ``grad_norm`` and moments.
 * The ``lm`` workload of ``python -m repro_torch.launch.train`` on the CPU
   with the reference test's flags (``tests/test_fault_tolerance.py``),
   killed at step 7 (a process of its own) and resumed: its ``done`` line
@@ -272,6 +275,78 @@ def test_train_step_matches_the_reference(accum_steps):
         err = np.where(band[key], 0.0, np.abs(g - w))
         assert float(err.max()) <= 1e-6 * float(np.abs(w).max()), key
         assert float(np.abs(g - w).max()) <= 2.01 * lr, key
+
+
+def _kernel_path(monkeypatch):
+    """The train step's kernel path on the CPU: K5, K5b, K6 and K6b stood in
+    for by their plain versions (recording each call), ``use_kernel``
+    taking the kernel path for every mode but "ref"; returns the calls."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.models.lm import layers as lm_layers
+
+    calls = []
+
+    def k5(q, k, v, *, causal, window, layout, return_lse=False):
+        calls.append("K5")
+        T = (lambda t: t.transpose(1, 2)) if layout == "bshd" else (lambda t: t)
+        o, lse = fa.flash_attention_lse_ref(T(q), T(k), T(v), causal=causal, window=window)
+        return (T(o), lse) if return_lse else T(o)
+
+    def k5b(*args, **kw):
+        calls.append("K5b")
+        return fa.flash_attention_bwd_ref(*args, **kw)
+
+    def k6(*args):
+        calls.append("K6")
+        return sc.ssd_chunk_ref(*args)
+
+    def k6b(*args):
+        calls.append("K6b")
+        return sc.ssd_chunk_bwd_ref(*args)
+
+    monkeypatch.setattr(fa_ops, "_FWD", k5)
+    monkeypatch.setattr(fa_ops, "_BWD", k5b)
+    monkeypatch.setattr(ssd_ops, "_FWD", k6)
+    monkeypatch.setattr(ssd_ops, "_BWD", k6b)
+    for mod in (fa_ops, ssd_ops, lm_layers):
+        monkeypatch.setattr(mod, "use_kernel", lambda mode, x: mode != "ref")
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_and_hybrid_train_steps_go_through_k6_and_k6b(arch, monkeypatch):
+    """A reduced mamba2 or hymba step (remat) on the kernel path, K6 and K6b
+    (and hymba's K5 and K5b) stood in by their plain versions, against the
+    same step with ``mode="ref"`` from the same state: each forward kernel
+    twice a layer and each backward kernel once, in that order per layer;
+    the loss, ``grad_norm``, ``mu`` and ``nu`` within the repo's
+    tolerances, every parameter within two steps of the plain one."""
+    calls = _kernel_path(monkeypatch)
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), remat=True)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(13, seq=40).items()}
+    lr = 1e-3
+    out = {}
+    for mode in ("auto", "ref"):
+        params = M.init(cfg, torch.Generator().manual_seed(5))
+        step = make_train_step(cfg, AdamWConfig(lr=lr), kv_block=KV_BLOCK, mode=mode)
+        p, s, m = step(params, init_opt_state(params), batch)
+        out[mode] = (params_to_numpy(p), opt_state_to_numpy(s), m)
+    n = cfg.num_layers
+    fwd = ["K5", "K6"] if arch == "hymba-1.5b" else ["K6"]
+    bwd = ["K5b", "K6b"] if arch == "hymba-1.5b" else ["K6b"]
+    assert sorted(calls) == sorted(fwd * 2 * n + bwd * n)
+    assert calls[:len(fwd) * n] == fwd * n  # the forward, layer by layer
+    (gp, gs, gm), (wp, ws, wm) = out["auto"], out["ref"]
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= LOSS_RTOL * float(wm["loss"])
+    assert abs(float(gm["grad_norm"]) - float(wm["grad_norm"])) <= (
+        GRAD_RTOL * float(wm["grad_norm"]))
+    _assert_close(ws["mu"], gs["mu"], "mu")
+    _assert_close(ws["nu"], gs["nu"], "nu", 2 * GRAD_RTOL, GRAD_FLOOR ** 2)
+    for key, w in _flat(wp).items():
+        assert float(np.abs(_flat(gp)[key] - w).max()) <= 2.01 * lr, key
 
 
 # ----------------------------------------------------------------------

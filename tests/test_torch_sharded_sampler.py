@@ -78,6 +78,7 @@ def reference():
             (blk.nbr_ids, blk.nbr_times, blk.nbr_eids, blk.mask))})
         states.append(ref.state_dict())
     rp["state1"] = states[0]
+    buffer_ids = np.asarray(ref.buffer_ids)  # the one-device rows at the end
     after = []  # the reference's first batch again from its end state
     (src, dst, t, eids, valid), seeds = rp["batches"][0], rp["seeds"][0]
     ref.update(src, dst, t, eids, valid=valid)
@@ -104,7 +105,7 @@ def reference():
               for s, q in up["queries"][:1]]
     return {"recency": rp, "samples": samples, "states": states,
             "after": after, "uniform": up, "uniform_state": jref.state_dict(),
-            "usamples": usamples, "prefix": prefix}
+            "usamples": usamples, "prefix": prefix, "buffer_ids": buffer_ids}
 
 
 @pytest.fixture(scope="module", params=SHARDS)
@@ -131,6 +132,19 @@ def test_recency_samples_and_state_are_bit_equal_to_the_reference(world, referen
         for key, want in reference["states"][-1].items():
             np.testing.assert_array_equal(rec["state"][key], np.asarray(want),
                                           err_msg=key)
+
+
+def test_recency_buffer_ids_are_each_ranks_block_of_the_reference_rows(world, reference):
+    """On a mesh ``buffer_ids`` is this rank's block of id rows (its sink
+    last): the owned rows equal the reference's one-device rows."""
+    shards, ranks = world
+    per = -(-N // shards)
+    for res in ranks:
+        rec = res["recency"]
+        ids, lo = rec["buffer_ids"], rec["rank"] * per
+        owned = max(min(lo + per, N) - lo, 0)
+        assert ids.shape == (per + 1, K)
+        np.testing.assert_array_equal(ids[:owned], reference["buffer_ids"][lo:lo + owned])
 
 
 def test_recency_state_moves_between_one_shard_and_the_mesh(world, reference):

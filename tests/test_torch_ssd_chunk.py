@@ -21,8 +21,16 @@
   (``kernel.py::chunk_plan``), its passes, its float32 operands split into
   two bfloat16 terms and the state's [8 x hi | 8 x lo] layout, held
   against the plain version.
+* The backward (K6b): its plain version ``ssd_chunk_bwd_ref`` against
+  ``jax.vjp`` of the reference model's ``ssd_mix`` in float32 (each
+  gradient within 1e-4 of its largest entry) and against torch autograd
+  of ``ssd_chunk_ref`` in float64, at S = 1, 37, 256 and 300, one and two
+  groups, P 48 and 64, N 16, 24 and 128, zero-dt rows, steep decay and a
+  final-state cotangent; ``kernel.bwd_plan``'s grids and scratch; the
+  autograd seam (a gradient call runs K6 then K6b, a call without one K6
+  alone), with the plain versions stood in.
 
-The CUDA kernel runs only on the card (``chip_smoke.py``'s ``lm_kernels``).
+The CUDA kernels run only on the card (``chip_smoke.py``'s ``lm_kernels``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from repro.kernels.ssd_chunk.ref import ssd_ref as jax_ssd_ref
 from repro.models.lm import layers as JL
 from repro_torch.kernels.ssd_chunk import (
     ssd,
+    ssd_chunk_bwd_kernel,
+    ssd_chunk_bwd_ref,
     ssd_chunk_kernel,
     ssd_chunk_ref,
     ssd_chunk_scan,
@@ -45,7 +55,9 @@ from repro_torch.kernels.ssd_chunk import (
 )
 from repro_torch.kernels.ssd_chunk.kernel import (
     CHUNK,
+    CHUNK_F32,
     HEADS_PER_BLOCK,
+    bwd_plan,
     chunk_plan,
 )
 
@@ -152,6 +164,8 @@ def test_kernel_mode_raises_on_cpu():
         ssd_chunk_scan(*args, mode="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         ssd_chunk_kernel(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_bwd_kernel(*args, args[0])
     single = list(map(torch.as_tensor, _single(CASES[0])))
     with pytest.raises(ValueError, match="CUDA"):
         ssd(*single, mode="kernel")
@@ -405,46 +419,222 @@ def test_kernel_mirror_matches_the_plain_version(case):
     assert np.abs(st - wst.numpy()).max() <= 1e-3 * scale
 
 
-def test_a_gradient_call_on_the_kernel_path_raises(monkeypatch):
-    """K6 writes its outputs through ctypes, out of autograd's sight, and has
-    no backward kernel yet: on the kernel path a call that needs a gradient
-    raises (naming the next item of ROADMAP A6) rather than detach what is
-    upstream; a call without one launches as before. The kernel is stood in
-    for by a recording stub, ``use_kernel`` taking the kernel path."""
+def _kernel_stubs(monkeypatch):
+    """Record-keeping plain versions stood in for K6 and K6b, and the kernel
+    path taken for every mode but "ref" (on the CPU)."""
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.models.lm import layers as lm_layers
 
     calls = []
 
-    def stub(x, dt, a, Bm, Cm):
-        calls.append(tuple(x.shape))
+    def fwd(x, dt, a, Bm, Cm):
+        calls.append("K6")
         return ssd_chunk_ref(x, dt, a, Bm, Cm)
+
+    def bwd(*args):
+        calls.append("K6b")
+        return ssd_chunk_bwd_ref(*args)
 
     monkeypatch.setattr(ssd_ops, "use_kernel", lambda mode, x: mode != "ref")
     monkeypatch.setattr(lm_layers, "use_kernel", lambda mode, x: mode != "ref")
-    monkeypatch.setattr(ssd_ops, "_FWD", stub)
-    rng = np.random.default_rng(2)
-    x, bm, cm = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
-                 for s in ((1, 40, 4, 8), (1, 40, 1, 16), (1, 40, 1, 16)))
-    dt = torch.as_tensor(np.abs(rng.standard_normal((1, 40, 4))).astype(np.float32))
-    a = -torch.ones(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ssd_ops.ssd_chunk_scan(x.requires_grad_(), dt, a, bm, cm)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_ops.ssd(x[0], dt[0], a, bm[0].expand(40, 4, 16), cm[0].expand(40, 4, 16))
-    assert calls == []
+    monkeypatch.setattr(ssd_ops, "_FWD", fwd)
+    monkeypatch.setattr(ssd_ops, "_BWD", bwd)
+    return calls
+
+
+def test_a_gradient_call_goes_through_k6_and_k6b(monkeypatch):
+    """On the kernel path a call that needs a gradient runs K6 then, in the
+    backward, K6b once (the plain versions stood in), and its gradients are
+    those of autograd through the plain version; the final state's
+    cotangent reaches K6b when the state is used. A call without a
+    gradient is one K6 launch."""
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    calls = _kernel_stubs(monkeypatch)
+    args = [torch.as_tensor(v) for v in _batched(2, 40, 4, 2, 8, 16, seed=2, pad_rows=5)]
+    rng = np.random.default_rng(3)
+    dy = torch.as_tensor(rng.standard_normal((2, 40, 4, 8)).astype(np.float32))
+    ds = torch.as_tensor(rng.standard_normal((2, 4, 8, 16)).astype(np.float32))
+    for use_state in (False, True):
+        calls.clear()
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, st = ssd_ops.ssd_chunk_scan(*leaves)
+        assert calls == ["K6"] and type(y.grad_fn).__name__ == "_SSDChunkFnBackward"
+        outs, cots = ([y, st], [dy, ds]) if use_state else ([y], [dy])
+        got = torch.autograd.grad(outs, leaves, cots)
+        assert calls == ["K6", "K6b"]
+        ref_leaves = [t.clone().requires_grad_() for t in args]
+        ry, rst = ssd_ops.ssd_chunk_scan(*ref_leaves, mode="ref")
+        want = torch.autograd.grad([ry, rst] if use_state else [ry], ref_leaves, cots)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+    calls.clear()
     with torch.no_grad():
-        ssd_ops.ssd_chunk_scan(x, dt, a, bm, cm)
-    ssd_ops.ssd_chunk_scan(x.detach(), dt, a, bm, cm)
-    assert calls == [(1, 40, 4, 8)] * 2
-    # through the model's mixer, as a train step would reach it
+        ssd_ops.ssd_chunk_scan(*leaves)
+    ssd_ops.ssd_chunk_scan(*args)
+    x, dt, a, bm, cm = args
+    ssd_ops.ssd(x[0], dt[0], a, bm[0].repeat_interleave(2, 1), cm[0].repeat_interleave(2, 1))
+    assert calls == ["K6"] * 3
+    xs = x[0].clone().requires_grad_()
+    ssd_ops.ssd(xs, dt[0], a, bm[0].repeat_interleave(2, 1),
+                cm[0].repeat_interleave(2, 1)).sum().backward()
+    assert calls == ["K6"] * 4 + ["K6b"] and xs.grad is not None
+
+
+def test_a_gradient_call_on_the_kernel_path_raises(monkeypatch):
+    """The one call that still raises on the kernel path: the mixer with an
+    initial state (K6 and K6b start from zeros, as the prefill and the
+    training step do), with or without a gradient; the model's mixer
+    itself trains through K6 and K6b, equal to the plain mixer's gradient."""
     from repro_torch.configs import ARCHS as TARCHS
+    from repro_torch.models.lm import layers as lm_layers
     from repro_torch.models.lm.params import materialize
 
+    calls = _kernel_stubs(monkeypatch)
     cfg = TARCHS["mamba2-780m"].reduced()
+    x, dt, a, bm, cm = (torch.as_tensor(v) for v in _batched(1, 16, 4, 1, 8, 16, seed=4))
+    init = torch.zeros((1, 4, 8, 16))
+    with pytest.raises(NotImplementedError, match="zero state"):
+        lm_layers.ssd_mix(cfg, x.requires_grad_(), dt, a, bm, cm, init_state=init)
+    with pytest.raises(NotImplementedError, match="zero state"):
+        with torch.no_grad():
+            lm_layers.ssd_mix(cfg, x, dt, a, bm, cm, init_state=init)
+    assert calls == []
     p = materialize(lm_layers.ssd_specs(cfg), torch.Generator().manual_seed(0))
-    h = torch.randn((1, 16, cfg.d_model), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        lm_layers.ssd_block(p, cfg, h)
-    lm_layers.ssd_block(p, cfg, h, mode="ref").sum().backward()
-    assert h.grad is not None and len(calls) == 2
+    h = torch.randn((1, 16, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for mode in ("auto", "ref"):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        hx = h.clone().requires_grad_()
+        out = lm_layers.ssd_block(leaves, cfg, hx, mode=mode)
+        grads.append(torch.autograd.grad(out.square().sum(), [hx, *leaves.values()]))
+    assert calls == ["K6", "K6b"]
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()) + 1e-7)
+
+
+# The backward's cases: (name, Bsz, S, H, G, P, N, pad_rows, dt_scale,
+# final-state cotangent).
+BWD_CASES = [
+    ("s1", 2, 1, 4, 1, 64, 16, 0, 1.0, False),
+    ("s37_g2_p48_n24_state", 2, 37, 4, 2, 48, 24, 0, 1.0, True),
+    ("s256_n128", 1, 256, 2, 1, 64, 128, 0, 1.0, False),
+    ("s300_g2_p48_dt0_state", 2, 300, 4, 2, 48, 16, 23, 1.0, True),
+    ("s300_steep_n24", 1, 300, 4, 1, 64, 24, 0, 10.0, False),
+    ("s300_g2_n128_state", 1, 300, 4, 2, 64, 128, 9, 1.0, True),
+]
+BWD_IDS = [c[0] for c in BWD_CASES]
+GRADS = ("dx", "ddt", "da", "dB", "dC")
+
+
+def _bwd_inputs(case, seed=5):
+    _, Bsz, S, H, G, P, N, pad, scale, with_state = case
+    args = _batched(Bsz, S, H, G, P, N, seed=seed, pad_rows=pad, dt_scale=scale)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.standard_normal((Bsz, S, H, P)).astype(np.float32)
+    ds = (rng.standard_normal((Bsz, H, P, N)).astype(np.float32) if with_state
+          else np.zeros((Bsz, H, P, N), np.float32))
+    return args, dy, ds, with_state
+
+
+def _hold(got, want, tol):
+    for name, g, w in zip(GRADS, got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape, name
+        assert np.isfinite(g).all(), name
+        scale = np.abs(w).max()
+        assert np.abs(g - w).max() <= tol * scale, (name, np.abs(g - w).max(), scale)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_jax_vjp_of_ssd_mix(case):
+    """The plain backward against ``jax.vjp`` of the reference's mixer
+    (jitted; chunks of 16 there, so that its differences of running sums
+    stay exact enough under steep decay), float32, each gradient within
+    1e-4 of its largest entry."""
+    import jax
+
+    cfg = ARCHS["mamba2-780m"].reduced()
+    args, dy, ds, with_state = _bwd_inputs(case)
+
+    @jax.jit
+    def vjp(primals, cotangents):
+        return jax.vjp(lambda *t: JL.ssd_mix(cfg, *t, chunk=16, return_state=True),
+                       *primals)[1](cotangents)
+
+    want = vjp(tuple(map(jnp.asarray, args)), (jnp.asarray(dy), jnp.asarray(ds)))
+    got = ssd_chunk_bwd_ref(*map(torch.as_tensor, args), torch.as_tensor(dy),
+                            torch.as_tensor(ds) if with_state else None)
+    assert [t.dtype for t in got] == [torch.float32] * 5
+    _hold([t.numpy() for t in got], [np.asarray(w) for w in want], 1e-4)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_bwd_ref_matches_float64_autograd_of_the_plain_scan(case):
+    args, dy, ds, with_state = _bwd_inputs(case, seed=7)
+    leaves = [torch.as_tensor(v).double().requires_grad_() for v in args]
+    y, st = ssd_chunk_ref(*leaves)
+    outs, cots = [y], [torch.as_tensor(dy).double()]
+    if with_state:
+        outs.append(st)
+        cots.append(torch.as_tensor(ds).double())
+    want = torch.autograd.grad(outs, leaves, cots)
+    got = ssd_chunk_bwd_ref(*(t.detach() for t in leaves), cots[0],
+                            cots[1] if with_state else None)
+    assert [t.dtype for t in got] == [torch.float64] * 5
+    _hold([t.numpy() for t in got], [w.numpy() for w in want], 1e-11)
+
+
+def test_bwd_ref_keeps_the_kernel_dtypes_and_is_chunk_free():
+    """bfloat16 inputs give bfloat16 dx, dB, dC and float32 ddt, da; the
+    chunk length moves only rounding (chunks of 32 against 128)."""
+    args, dy, ds, _ = _bwd_inputs(BWD_CASES[3])
+    t = [torch.as_tensor(v) for v in args]
+    bf = [t[0].bfloat16(), t[1], t[2], t[3].bfloat16(), t[4].bfloat16()]
+    got = ssd_chunk_bwd_ref(*bf, torch.as_tensor(dy).bfloat16())
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+    a = ssd_chunk_bwd_ref(*t, torch.as_tensor(dy), torch.as_tensor(ds), chunk=CHUNK_F32)
+    b = ssd_chunk_bwd_ref(*t, torch.as_tensor(dy), torch.as_tensor(ds))
+    _hold([x.numpy() for x in a], [x.numpy() for x in b], 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_plan_covers_every_chunk_and_head_once(shape, dtype):
+    """K6b's grids: every (batch, chunk, head) in exactly one block of the
+    dx and dB / dC passes (the float32 kernel: every (batch, head) in one
+    block, walking every chunk); the scratch shapes and their bytes."""
+    Bsz, S, H, G, P, N = shape
+    dt = getattr(torch, dtype)
+    plan = bwd_plan(*shape, dt)
+    chunk, nc, tiles = plan["chunk"], plan["chunks"], plan["head_tiles"]
+    assert chunk == (CHUNK if dt == torch.bfloat16 else CHUNK_F32)
+    assert nc * chunk >= S > (nc - 1) * chunk
+    per, Hg = plan["heads_per_block"], H // G
+    assert tiles == -(-Hg // per) and tiles * Bsz * G <= 65535 * 65535
+    name = "dx" if dt == torch.bfloat16 else "f32"
+    grid = plan["grids"][name]
+    seen = np.zeros((Bsz, nc, H), np.int64)
+    zs = grid[2] if dt == torch.bfloat16 else grid[1]
+    for z in range(zs):
+        b, g = divmod(z, G)
+        for ht in range(grid[1] if dt == torch.bfloat16 else grid[0]):
+            h0, nh = g * Hg + ht * per, min(per, Hg - ht * per)
+            assert nh >= 1
+            seen[b, :, h0:h0 + nh] += 1
+    assert (seen == 1).all()
+    if dt == torch.bfloat16:
+        assert grid == plan["grids"]["dbc"] == (nc, tiles, Bsz * G)
+        assert plan["states"] == plan["cotan"] == chunk_plan(*shape)["scratch"]
+        assert plan["decay"] == (Bsz, nc, H) and plan["part_a"] == (Bsz, nc, H)
+    else:
+        assert plan["states"] == (Bsz, nc, H, P, N) and plan["part_a"] == (Bsz, 1, H)
+        assert plan["cotan"] is None and plan["decay"] is None
+    assert plan["part_b"] == plan["part_c"] == (tiles, Bsz, S, G, N)
+    assert plan["grids"]["sum"] == (-(-Bsz * S * G * N // 256),)
+    shapes = [plan[k] for k in ("states", "cotan", "decay", "final", "part_b",
+                                "part_c", "part_a") if plan[k] is not None]
+    assert plan["scratch_bytes"] == sum(4 * int(np.prod(v)) for v in shapes)

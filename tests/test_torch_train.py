@@ -241,6 +241,39 @@ def test_bce_link_loss_and_gradient_match_the_reference(tied):
     np.testing.assert_allclose(got_h, want_h, rtol=1e-5, atol=1e-6)
 
 
+def test_adamw_lr_scale_matches_the_reference():
+    """One step at ``lr_scale`` 0.5 against the reference's; 1.0 gives the
+    bits of the call without it."""
+    from repro.optim import AdamWConfig as JaxAdamWConfig
+    from repro.optim import adamw_init as jax_adamw_init
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    rng = np.random.default_rng(10)
+    params = {"w": rng.standard_normal((6, 3)).astype(np.float32),
+              "b": rng.standard_normal(3).astype(np.float32)}
+    grads = {"w": rng.standard_normal((6, 3)).astype(np.float32),
+             "b": rng.standard_normal(3).astype(np.float32)}
+    cfg = dict(lr=3e-3, weight_decay=0.01)
+    jp, _ = jax_adamw_update(params, grads, jax_adamw_init(params),
+                             JaxAdamWConfig(**cfg), lr_scale=0.5)
+    tp = params_from_jax(params)
+    tp, ts = adamw_update(tp, params_from_jax(grads), adamw_init(tp),
+                          AdamWConfig(**cfg), lr_scale=0.5)
+    for key, want, got in _pairs(jax.device_get(jp), params_to_numpy(tp)):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7, err_msg=key)
+    half = {k: v - params[k] for k, v in params_to_numpy(tp).items()}
+    outs = []
+    for kw in ({}, {"lr_scale": 1.0}):
+        p = params_from_jax(params)
+        p, _ = adamw_update(p, params_from_jax(grads), adamw_init(p),
+                            AdamWConfig(**cfg), **kw)
+        outs.append(params_to_numpy(p))
+    for key in params:
+        np.testing.assert_array_equal(outs[0][key], outs[1][key])
+        np.testing.assert_allclose(half[key], 0.5 * (outs[0][key] - params[key]),
+                                   rtol=1e-4, atol=1e-7)
+
+
 def test_adamw_update_matches_the_reference():
     from repro.optim import AdamWConfig as JaxAdamWConfig
     from repro.optim import adamw_init as jax_adamw_init
