@@ -215,16 +215,20 @@ outside a checkout of the repository. Phases, each printed as a JSON line
    K5b, the plain backward, SDPA forward + backward and SDPA's backward
    alone (one saved forward) beside its bound, and ptxas' registers and
    spills of its bf16 kernels (none may spill); K6b (the SSD scan's
-   gradient, LM training's) at hymba's and mamba2's shapes: dx, ddt, da,
-   dB and dC against ``ssd_chunk_bwd_ref`` and against autograd of the
-   float32 plain forward (BF16_TOL of each gradient's largest entry), a
-   second launch bitwise, its time, its device time per pass (in K6's
-   profiler window at the shape) and the plain backward's beside its bound,
-   its scratch bytes against ``bwd_plan``'s, ptxas' registers and spills
-   of its chunk passes and float32 kernel (none may spill), and cases
+   gradient, LM training's) at hymba's and mamba2's shapes, as a train
+   step calls it (on the chunk states K6 kept, which are held against
+   ``ssd_chunk_states_ref``): dx, ddt, da, dB and dC against
+   ``ssd_chunk_bwd_ref`` and against autograd of the float32 plain forward
+   (BF16_TOL of each gradient's largest entry), a second launch bitwise,
+   its time, its device time, achieved TFLOP/s and GB/s per pass (in K6's
+   profiler window at the shape) and the plain backward's beside its
+   bound, its scratch bytes against ``bwd_plan``'s, ptxas' registers,
+   spills and ``wgmma`` serialization of its chunk-pass instances, reverse
+   pass and float32 kernel (none may spill or serialize), and cases
    (``K6B_CASES``: S = 1 and 300, two groups, P 48 / N 24 and P 40 / N 20,
    steep decay, zero-dt rows, a final-state cotangent, float32 within
-   ATOL), each also bitwise on contiguous copies of the views;
+   ATOL), each (bf16: on K6's kept states) also bitwise on contiguous
+   copies of the views;
    degenerate inputs (Sq != Skv, S = 1, S not a
    multiple of the tile or chunk, window >= S, non-causal, float32 on K5's
    and K6's CUDA-core kernels, bfloat16 on K5's tensor-core kernel at D =
@@ -270,7 +274,8 @@ outside a checkout of the repository. Phases, each printed as a JSON line
    mamba2-780m (48 layers: 96 K6 launches, 48 K6b) and hymba-1.5b (32:
    64 K5, 32 K5b, 64 K6, 32 K6b) the same way, every K6 and K6b call held
    on its own inputs, five timed steps and one profiled, with K6b's device
-   ms a step by pass, and hymba's float32 variant at 2 layers held whole
+   ms a step by pass (and its own passes' sum, TFLOP/s and GB/s per call),
+   and hymba's float32 variant at 2 layers held whole
    (its gradients within SSM_F32_GRAD_RTOL); last
    ``python -m repro_torch.launch.train --workload lm`` on the card: the
    reduced qwen3 with the reference test's flags killed at step 7 and
@@ -475,13 +480,20 @@ SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk_bwd.cu"
 # chunked scan.
 TPU_K6B = ("src/repro/models/lm/layers.py:580 (no TPU kernel: autodiff of the "
            "jnp ssd_mix)")
-# K6b's launches by kernel name (the profiler's and ptxas'), in order: K6's
-# passes 1 (``ssd_chunk_state_kernel<NB, false>``) and 2 again, pass 1 with
-# dy and C (``<NB, true>``), the reverse state pass, the dx pass, the dB / dC
-# pass, the two fixed-order sums; the float32 kernel.
+# K6b's launches by kernel name (the profiler's and ptxas'), in order,
+# after K6's passes 1 (``ssd_chunk_state_kernel<NB, false>``) and 2, which
+# the forward launches and a train step's profile books beside K6b's: pass
+# 1 with dy and C (``<NB, true>``), the reverse state pass, the chunk pass
+# (``ssd_bwd_chunk_kernel<16, true, true>``, or its dx and dB / dC kernels
+# ``<128, true, false>`` and ``<128, false, true>``), the fixed-order sums;
+# the float32 kernel.
 K6B_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_state_rpass_kernel",
-               "ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel", "ssd_bwd_sum_kernel",
-               "ssd_bwd_da_kernel", "ssd_bwd_f32_kernel")
+               "ssd_bwd_chunk_kernel", "ssd_bwd_sum_kernel", "ssd_bwd_f32_kernel")
+# The chunk pass's instances by their template arguments, and their pass names.
+K6B_CHUNK = {"true, true": "chunk", "true, false": "chunk_dx", "false, true": "chunk_dbc"}
+# The passes K6b itself launches (bfloat16, on K6's kept states).
+K6B_OWN = ("cotan", "ssd_state_rpass_kernel", "chunk", "chunk_dx", "chunk_dbc",
+           "ssd_bwd_sum_kernel")
 DEVICE = "cuda"
 T_START = time.perf_counter()
 
@@ -5074,9 +5086,10 @@ def ptxas_report(logs: dict, fragments, library: str):
             check(m is not None, f"ptxas report of {name}: no match for {pat!r}")
             return int(m.group(1))
 
-        nb = re.search(r"ILi(\d+)E", name)
-        label = frag + ("<128>" if "ILi128E" in name else "<64>" if "ILi64E" in name
-                        else f"<{nb.group(1)}>" if nb else "")
+        targs = re.match(r"I((?:L[ib]\d+E)+)E", name[name.index(frag) + len(frag):])
+        label = frag + ("<" + ", ".join(
+            v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([ib])(\d+)E", targs.group(1))) + ">" if targs else "")
         out[label] = dict(registers=num(r"Used (\d+) registers"),
                           spill_stores=num(r"(\d+) bytes spill stores"),
                           spill_loads=num(r"(\d+) bytes spill loads"),
@@ -5312,17 +5325,19 @@ def lm_kernels_phase(torch):
         for name, r in rep.items():
             check(r["spill_stores"] == 0 and r["spill_loads"] == 0
                   and not r["wgmma_serialized"], f"K5b {name}: ptxas spills or serializes ({r})")
-    # K6b's chunk passes and its float32 kernel likewise (no spills)
+    # K6b's chunk-pass instances, its reverse pass and its float32 kernel
+    # likewise (no spill, no serialized wgmma, none missing)
     rep = results["ptxas_k6b"] = ptxas_report(
-        BUILD_LOGS, ("ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel", "ssd_bwd_f32_kernel",
-                     "ssd_state_rpass_kernel"), "ssd_chunk_bwd")
+        BUILD_LOGS, ("ssd_bwd_chunk_kernel", "ssd_bwd_f32_kernel", "ssd_state_rpass_kernel"),
+        "ssd_chunk_bwd")
     if rep is not None:
-        want = {f"{k}<{nb}>" for k in ("ssd_bwd_dx_kernel", "ssd_bwd_dbc_kernel")
-                for nb in (16, 128)} | {"ssd_bwd_f32_kernel", "ssd_state_rpass_kernel"}
+        want = {"ssd_bwd_chunk_kernel<16, true, true>", "ssd_bwd_chunk_kernel<128, true, false>",
+                "ssd_bwd_chunk_kernel<128, false, true>", "ssd_bwd_f32_kernel",
+                "ssd_state_rpass_kernel"}
         check(set(rep) == want, f"K6b ptxas report: kernels {sorted(rep)}, want {sorted(want)}")
         for name, r in rep.items():
-            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
-                  f"K6b {name}: ptxas spills ({r})")
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                  and not r["wgmma_serialized"], f"K6b {name}: ptxas spills or serializes ({r})")
     return results, cases
 
 
@@ -5388,10 +5403,17 @@ def k6_kernels(torch, gen):
             plain_us = sum(us["plain"].values()) if us["plain"] else None
             if label in K6B_LABELS:
                 bpass = k6b_pass_us(us["bwd"], label)
+                work = k6b_pass_work(B, S, H, G, P, N)
                 rb.update(device_us=sum(bpass.values()) if bpass else None,
                           device_us_by_pass=bpass,
+                          rates_by_pass=k6b_rates(bpass, work),
+                          work_by_pass={k: dict(operations=v[0], bytes=v[1])
+                                        for k, v in work.items()},
                           plain_device_us=sum(us["bwd_plain"].values()) if us["bwd_plain"]
                           else None)
+                if bpass:
+                    check(set(bpass) <= set(K6B_OWN), f"K6b {label}: a call ran "
+                          f"{sorted(bpass)}, not only K6b's own passes")
                 results[f"K6b_{label}"] = rb
             del fns, us
             r = results[f"K6_{label}"] = dict(
@@ -5489,12 +5511,60 @@ def k6_kernels(torch, gen):
 
 def k6b_pass(name: str):
     """K6b's pass of a device kernel by its profiler name: ``states`` and
-    ``cotan`` (pass 1 with x and B, and with dy and C), else the kernel's
-    entry of K6B_KERNELS; None for a kernel of no pass."""
+    ``cotan`` (pass 1 with x and B, and with dy and C), the chunk pass's
+    instances by K6B_CHUNK, else the kernel's entry of K6B_KERNELS; None for
+    a kernel of no pass."""
     if K6B_KERNELS[0] in name:
         return "cotan" if "true" in name else "states"
+    if "ssd_bwd_chunk_kernel" in name:
+        hit = [v for k, v in K6B_CHUNK.items() if f"{k}>" in name]
+        return hit[0] if len(hit) == 1 else None
     hit = [k for k in K6B_KERNELS[1:] if k in name]
     return hit[0] if len(hit) == 1 else None
+
+
+def k6b_pass_work(B, S, H, G, P, N) -> dict:
+    """{pass: (operations, bytes)} of one bfloat16 K6b call at these sizes,
+    the rates' numerators: the useful operations of each pass's products
+    (at the state's width N16, not the 64 columns the chunk pass's wgmma
+    issues where N16 < 64; pass 1's product once, not its two bf16 terms;
+    dy x^T in each kernel that forms it), and the bytes of each tensor a
+    pass reads or writes, once."""
+    from repro_torch.kernels.ssd_chunk.kernel import bwd_plan
+
+    nc, Q, P16, N16 = -(-S // 128), 128, -(-P // 16) * 16, -(-N // 16) * 16
+    PN, heads, rows = P16 * N16, B * nc * H, B * S
+    blk = 2 * 64 * 64  # one 64 x 64 block, one column of K
+    state = 4 * heads * PN
+    per_head_in = 2 * rows * H * P
+    bc = 2 * 2 * rows * G * N
+    table = 4 * heads * (2 * Q + 32)
+    images = 2 * 2 * heads * PN
+    parts = 2 * 4 * bwd_plan(B, S, H, G, P, N)["head_tiles"] * rows * G * N
+    pass1 = 2 * Q * P16 * N16 * heads
+    # per head: V2, C B^T, dy x^T, W^T dy and C s_in^T (dx); dy x^T, R^T C,
+    # (e dt x) g, R B and (exp(cum) dy) s_in (dB / dC)
+    dx_ops = heads * (2 * blk * N16 + 3 * blk * N16 + 3 * blk * 64 + 3 * blk * 64
+                      + 2 * blk * N16)
+    dbc_ops = heads * (3 * blk * 64 + 3 * blk * N16 + 2 * blk * N16 + 3 * blk * N16
+                       + 2 * blk * N16)
+    dx_bytes = 2 * per_head_in + bc + images + table + per_head_in + 4 * rows * H + 4 * heads
+    dbc_bytes = 2 * per_head_in + bc + images + table + parts
+    out = {"cotan": (pass1, per_head_in + bc // 2 + 4 * rows * H + state + table),
+           "ssd_state_rpass_kernel": (2 * heads * PN, 2 * state + 4 * heads + images),
+           "ssd_bwd_sum_kernel": (0, parts + bc + 4 * heads + 4 * H)}
+    if N16 <= 16:
+        out["chunk"] = (dx_ops + dbc_ops - heads * 3 * blk * 64, dx_bytes + parts)
+    else:
+        out["chunk_dx"], out["chunk_dbc"] = (dx_ops, dx_bytes), (dbc_ops, dbc_bytes)
+    return out
+
+
+def k6b_rates(us_by_pass: dict, work: dict) -> dict:
+    """{pass: {"tflops": achieved operations / device time, "gbps": bytes /
+    device time}} of the passes with a device time."""
+    return {k: {"tflops": work[k][0] / us / 1e6, "gbps": work[k][1] / us / 1e3}
+            for k, us in us_by_pass.items() if us and k in work}
 
 
 def k6b_pass_us(by_name: dict, label: str) -> dict:
@@ -5525,24 +5595,36 @@ def _k6b_inputs(torch, gen, B, S, H, G, P, N, dtype, dt_scale=1.0, zero_tail=0,
 
 
 def k6b_check(torch, gen, label, B, S, H, G, P, N):
-    """K6b at a training shape (B = 4, S = 4,096, bfloat16): dx, ddt, da,
-    dB and dC against ``ssd_chunk_bwd_ref`` on the same inputs and against
-    autograd of the float32 plain forward (``ssd_chunk_ref``), each within
-    BF16_TOL of the gradient's largest entry; a second launch bitwise;
-    times by CUDA events, the plain backward's (autograd of the plain
-    forward, its backward alone), the bound and its share, the scratch's
-    bytes (the allocator's rise over a call less the outputs, and
-    ``bwd_plan``'s). Returns its numbers and the two callables (``bwd``,
-    ``bwd_plain``) whose device µs the caller reads in K6's profiler window
+    """K6b at a training shape (B = 4, S = 4,096, bfloat16), as a train step
+    calls it: on K6's kept chunk states (``ssd_chunk_kernel(...,
+    keep=True)``; their hi + lo terms against ``ssd_chunk_states_ref`` to
+    SSD_TOL of the largest entry); dx, ddt, da, dB and dC against
+    ``ssd_chunk_bwd_ref``
+    on the same inputs and against autograd of the float32 plain forward
+    (``ssd_chunk_ref``), each within BF16_TOL of the gradient's largest
+    entry; a second launch bitwise; times by CUDA events, the plain
+    backward's (autograd of the plain forward, its backward alone),
+    the bound and its share, the scratch's bytes (the allocator's rise over
+    a call less the outputs, and ``bwd_plan``'s). Returns its numbers and
+    the callables (``bwd``, ``bwd_plain``) whose device µs the caller reads in K6's profiler window
     (``k6b_pass_us`` by pass)."""
     from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_ref,
-                                               ssd_chunk_ref)
+                                               ssd_chunk_kernel, ssd_chunk_ref,
+                                               ssd_chunk_states_ref)
     from repro_torch.kernels.ssd_chunk.kernel import bwd_plan
 
     args, dy, _ = _k6b_inputs(torch, gen, B, S, H, G, P, N, torch.bfloat16)
     names = ("dx", "ddt", "da", "dB", "dC")
-    got = ssd_chunk_bwd_kernel(*args, dy)
-    again = ssd_chunk_bwd_kernel(*args, dy)
+    _, _, kept = ssd_chunk_kernel(*args, keep=True)
+    # the [8 x hi | 8 x lo] groups of K6's split states, as hi + lo
+    split = kept[0].view(*kept[0].shape[:-1], -1, 8).view(torch.bfloat16).float()
+    s_in = (split[..., :8] + split[..., 8:]).reshape(kept[0].shape)[..., :P, :N]
+    ws, wd = ssd_chunk_states_ref(*args)
+    kept_err = compare_rel(torch, s_in, ws, f"K6 {label} kept states", SSD_TOL)[1]
+    compare(torch, kept[1], wd, f"K6 {label} kept decays", ATOL)  # elementwise: many are ~0
+    del split, s_in, ws, wd
+    got = ssd_chunk_bwd_kernel(*args, dy, kept=kept)
+    again = ssd_chunk_bwd_kernel(*args, dy, kept=kept)
     check(all(bool(torch.equal(p, q)) for p, q in zip(got, again)),
           f"K6b {label}: a second launch gave other bits")
     del again
@@ -5565,15 +5647,17 @@ def k6b_check(torch, gen, label, B, S, H, G, P, N):
     def plain():
         return torch.autograd.grad(saved, leaves, dy, retain_graph=True)
 
-    kern = lambda: ssd_chunk_bwd_kernel(*args, dy)  # noqa: E731
+    kern = lambda: ssd_chunk_bwd_kernel(*args, dy, kept=kept)  # noqa: E731
     bound, by, nbytes, flops = ssd_bwd_bound(B, S, H, G, P, N, 2)
     r = dict(B=B, S=S, H=H, G=G, P=P, N=N, dtype="bfloat16",
              max_abs_err=max(e[0] for e in errs.values()),
              rel_err={n: e[1] for n, e in errs.items()},
              rel_err_vs_autograd={n: e[1] for n, e in errs_auto.items()},
+             kept_states_rel_err=kept_err,
              rerun_bitwise_equal=True, ms=time_ms(torch, kern, 5, 3),
              plain_ms=time_ms(torch, plain, 1, 3), library_ms=None,
-             bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+             bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+             launches_per_call=len(bwd_plan(B, S, H, G, P, N)["grids"]))
     r["bound_share"] = bound / r["ms"]
     r["device_us_cuda_events_idle_stream"] = 1e3 * r["ms"]
     r["scratch_bytes_planned"] = bwd_plan(B, S, H, G, P, N)["scratch_bytes"]
@@ -5612,18 +5696,25 @@ K6B_CASES = (("s1", 2, 1, 48, 1, 64, 128, "bfloat16", 1.0, 0, False),
 def k6b_case(torch, gen, cases, name, B, S, H, G, P, N, dtype, dt_scale, zero_tail,
              with_state):
     """K6b on one degenerate input against ``ssd_chunk_bwd_ref`` (BF16_TOL of
-    each gradient's largest entry, ATOL in float32), a second launch and
-    the call on contiguous copies of the views bitwise; steep cases must
-    reach a chunk sum below -88; appended to ``cases``."""
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_kernel, ssd_chunk_bwd_ref
+    each gradient's largest entry, ATOL in float32), in bfloat16 on the
+    chunk states K6 kept (``ssd_chunk_kernel(..., keep=True)``, as a train
+    step calls it); a second launch and the call on contiguous copies of
+    the views (and K6's states of those) bitwise; steep cases must reach a
+    chunk sum below -88; appended to ``cases``."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_kernel, ssd_chunk_bwd_ref,
+                                               ssd_chunk_kernel)
     from repro_torch.kernels.ssd_chunk.kernel import CHUNK, CHUNK_F32
 
     dtype = getattr(torch, dtype)
     args, dy, ds = _k6b_inputs(torch, gen, B, S, H, G, P, N, dtype, dt_scale, zero_tail,
                                with_state)
-    got = ssd_chunk_bwd_kernel(*args, dy, ds)
-    again = ssd_chunk_bwd_kernel(*args, dy, ds)
-    copies = ssd_chunk_bwd_kernel(*(t.contiguous() for t in args), dy, ds)
+    kept = ssd_chunk_kernel(*args, keep=True)[2]
+    check((kept is None) == (dtype != torch.bfloat16), f"K6b {name}: K6 kept {kept is None}")
+    got = ssd_chunk_bwd_kernel(*args, dy, ds, kept=kept)
+    again = ssd_chunk_bwd_kernel(*args, dy, ds, kept=kept)
+    flat = [t.contiguous() for t in args]
+    copies = ssd_chunk_bwd_kernel(*flat, dy, ds,
+                                  kept=ssd_chunk_kernel(*flat, keep=True)[2])
     check(all(bool(torch.equal(p, q)) for p, q in zip(got, again)),
           f"K6b {name}: a second launch gave other bits")
     check(all(bool(torch.equal(p, q)) for p, q in zip(got, copies)),
@@ -6174,17 +6265,18 @@ def _train_taps(torch, errs):
     def chunk_tol(x):
         return (CHUNK, BF16_TOL) if x.dtype == torch.bfloat16 else (CHUNK_F32, ATOL)
 
-    def sfwd_tap(x, dt, a, Bm, Cm):
-        y, st = sfwd(x, dt, a, Bm, Cm)
+    def sfwd_tap(x, dt, a, Bm, Cm, keep=False):
+        out = sfwd(x, dt, a, Bm, Cm, keep=keep)
+        y, st = out[:2]
         chunk, tol = chunk_tol(x)
         with torch.no_grad():
             wy, wst = ssd_chunk_ref(x, dt, a, Bm, Cm, chunk=chunk)
             errs["K6"].append(compare(torch, y, wy, "train K6 call", tol))
             errs["K6_state"].append(compare_rel(torch, st, wst, "train K6 state", SSD_TOL)[1])
-        return y, st
+        return out
 
-    def sbwd_tap(x, dt, a, Bm, Cm, dy, dstate):
-        got = sbwd(x, dt, a, Bm, Cm, dy, dstate)
+    def sbwd_tap(x, dt, a, Bm, Cm, dy, dstate, kept=None):
+        got = sbwd(x, dt, a, Bm, Cm, dy, dstate, kept=kept)
         chunk, tol = chunk_tol(x)
         with torch.no_grad():
             want = ssd_chunk_bwd_ref(x, dt, a, Bm, Cm, dy, dstate, chunk=chunk)
@@ -6238,15 +6330,33 @@ def train_launches(cfg) -> dict:
 def k6b_step_ms(prof, steps: int) -> dict:
     """K6b's device ms a train step by pass (``k6b_pass_us``'s names) from a
     profiler window over ``steps`` steps. ``states`` and
-    ``ssd_state_pass_kernel`` are K6's passes 1 and 2, which its forward
-    launches too (twice a layer under remat, against K6b's once): their
-    totals are all of those launches'."""
+    ``ssd_state_pass_kernel`` are K6's passes 1 and 2, which only its
+    forward launches (twice a layer under remat)."""
     out = {}
     for e in prof.profiler.kineto_results.events():
         key = k6b_pass(e.name()) if e.device_type().name == "CUDA" else None
         if key is not None:
             out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6 / steps
     return out
+
+
+def k6b_step_report(cfg, by_pass: dict) -> dict:
+    """K6b's device ms a train step by pass (``k6b_step_ms``), the sum of
+    the passes K6b itself launches (K6B_OWN: with K6's states kept, passes
+    1-2 are K6's forward's alone), and each own pass's achieved TFLOP/s and
+    GB/s per call (``k6b_pass_work`` at the step's SSD shape, over the
+    step's K6b calls); empty for a config without K6b or a run without
+    device records."""
+    calls = train_launches(cfg)["ssd_chunk_bwd"]
+    if not calls or not by_pass:
+        return {"k6b_device_ms_per_step": by_pass}
+    own = {k: v for k, v in by_pass.items() if k in K6B_OWN}
+    work = k6b_pass_work(LM_B, LM_S, cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_head_dim,
+                         cfg.ssm_state)
+    return {"k6b_device_ms_per_step": by_pass,
+            "k6b_own_device_ms_per_step": sum(own.values()),
+            "k6b_rates_by_pass": k6b_rates({k: 1e3 * v / calls for k, v in own.items()},
+                                           work)}
 
 
 def _leaf_rel(torch, got, want):
@@ -6434,7 +6544,7 @@ def lm_train_run(torch, cfg, f32: bool, before_timed_steps=None):
                                                      "device_ms_by_name")}),
                    k5b_device_ms_per_step={k: v / LM_TRAIN_BUSY_STEPS
                                            for k, v in busy["ms_of"].items()},
-                   k6b_device_ms_per_step=k6b_step_ms(prof, LM_TRAIN_BUSY_STEPS))
+                   **k6b_step_report(cfg, k6b_step_ms(prof, LM_TRAIN_BUSY_STEPS)))
     del params, opt, live, init, batches
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_run
@@ -7476,13 +7586,18 @@ def main() -> int:
         "device_us_cuda_events_idle_stream": k6b["device_us_cuda_events_idle_stream"],
         "bound_share": k6b["bound_share"], "scratch_bytes": k6b["scratch_bytes"],
         "device_us_by_pass": k6b["device_us_by_pass"],
+        "rates_by_pass": k6b["rates_by_pass"],
         "device_ms_per_train_step": {a: lt[a]["k6b_device_ms_per_step"]
                                      for a in LM_TRAIN_SSM_ARCHS},
+        "own_device_ms_per_train_step": {a: lt[a].get("k6b_own_device_ms_per_step")
+                                         for a in LM_TRAIN_SSM_ARCHS},
+        "rates_by_pass_in_train_step": {a: lt[a].get("k6b_rates_by_pass")
+                                        for a in LM_TRAIN_SSM_ARCHS},
         "ptxas": lmk["ptxas_k6b"],
         "hymba": {k: lmk["K6b_hymba"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "device_us", "plain_device_us",
             "device_us_cuda_events_idle_stream", "bound_share", "scratch_bytes",
-            "device_us_by_pass")},
+            "device_us_by_pass", "rates_by_pass")},
     }], "wrappers_off_main_path": [{
         "name": "fused_recency_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K1W,

@@ -5,8 +5,10 @@ and is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, which the kernel's wrapper loads with ``ctypes``. Builds happen at
 first use, from the sources in the checkout, into ``kernels/_build/``
 (listed in ``.gitignore``); the library name carries a hash of the source,
-the ``*.cuh`` headers beside it and the flags, so an edited source or
-header rebuilds and an unchanged one loads the library built before. ``build_all`` starts one ``nvcc`` per source at once.
+the ``*.cuh`` headers beside it, the shared headers of ``kernels/csrc_common/``
+(on every source's include path) and the flags, so an edited source or
+header rebuilds and an unchanged one loads the library built before.
+``build_all`` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
+# Headers every source may include (``-I``): the Hopper building blocks.
+COMMON_DIR = KERNELS_DIR / "csrc_common"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,11 +49,18 @@ def _nvcc() -> str:
     )
 
 
+def headers(src: Path) -> List[Path]:
+    """The headers ``src`` may include: those beside it, then the shared
+    ones of ``COMMON_DIR``."""
+    return sorted(src.parent.glob("*.cuh")) + sorted(COMMON_DIR.glob("*.cuh"))
+
+
 def library_path(src: Path) -> Path:
     """Where the library built from ``src`` lives (keyed by the content of
-    the source and of the headers in its directory)."""
+    the source, of its ``headers`` and of the flags)."""
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in headers(src):
+        h.update(header.name.encode())
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
@@ -64,7 +75,7 @@ def _start(src: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", str(COMMON_DIR), "-o", tmp, str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, target

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of K5b's bfloat16 path
-// (flash_attention_bwd.cu), in inline PTX: mbarriers, TMA tile loads and bulk
-// copies into shared memory, descriptors of 128-byte-swizzled operand tiles,
-// and the warpgroup products (wgmma) it issues.
+// Hopper (sm_90a) building blocks shared by the bfloat16 paths of K5b
+// (flash_attention/csrc/flash_attention_bwd.cu) and K6b
+// (ssd_chunk/csrc/ssd_chunk_bwd.cu), in inline PTX: mbarriers, TMA tile loads
+// and bulk copies into shared memory, descriptors of 128-byte-swizzled
+// operand tiles, and the warpgroup products (wgmma) they issue. Every source
+// of the port has this directory on its include path (kernels/_build.py).
 //
 // Operand tiles. A TMA box of 64 bf16 columns (128 bytes) by R rows with
 // CU_TENSOR_MAP_SWIZZLE_128B lands as R rows of 128 bytes, the 16-byte
@@ -79,6 +81,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// The byte offset of the 16-byte chunk `chunk` (0 .. 7) of row `row` in a
+// 128-byte-swizzled region (rows of 128 bytes from a 1,024-byte aligned
+// base), for reads and writes of such a tile by ordinary loads, stores and
+// ldmatrix.
+__device__ __forceinline__ uint32_t sw128_at(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
 // ---------------------------------------------------------------------------

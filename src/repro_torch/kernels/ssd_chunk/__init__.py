@@ -8,8 +8,13 @@ from repro_torch.kernels.ssd_chunk.kernel import (
     ssd_chunk_kernel,
 )
 from repro_torch.kernels.ssd_chunk.ops import ssd, ssd_chunk_scan
-from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_bwd_ref, ssd_chunk_ref, ssd_ref
+from repro_torch.kernels.ssd_chunk.ref import (
+    ssd_chunk_bwd_ref,
+    ssd_chunk_ref,
+    ssd_chunk_states_ref,
+    ssd_ref,
+)
 
 __all__ = ["LAUNCHES", "reset_launches", "ssd", "ssd_chunk_bwd_kernel",
            "ssd_chunk_bwd_ref", "ssd_chunk_kernel", "ssd_chunk_ref",
-           "ssd_chunk_scan", "ssd_ref"]
+           "ssd_chunk_scan", "ssd_chunk_states_ref", "ssd_ref"]

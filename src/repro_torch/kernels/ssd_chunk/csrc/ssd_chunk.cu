@@ -95,13 +95,74 @@
 // writes y_i = sum_j W[i, j] x_j + exp(cum_i) C_i . s_prev and updates the
 // state, each thread accumulating its 4 x NJ entries in registers.
 //
-// The launch parameters, the tile helpers and passes 1-2 live in
-// ssd_chunk.cuh, shared with the backward (ssd_chunk_bwd.cu, K6b), which
-// launches passes 1-2 again to recompute the states entering each chunk.
+// The launch parameters, the tile helpers and pass 1 live in ssd_chunk.cuh,
+// shared with the backward (ssd_chunk_bwd.cu, K6b), which launches pass 1
+// on dy and C for the state cotangents and reads the chunk states that
+// passes 1-2 left when the caller kept them.
 
 #include "ssd_chunk.cuh"
 
 namespace {
+
+// Pass 2: the state entering each chunk. A thread owns kPassE consecutive
+// entries of a state row of (b, h), 8 / kPassE lanes one group of 8 (the
+// [8 x hi | 8 x lo] layout's unit); grid (entries / (kPassE kPassThreads),
+// H, B). Each batch of kPassUnroll chunks is loaded before the warp writes
+// into the same 32-byte groups (__syncwarp between).
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass_kernel(float* __restrict__ st, const float* __restrict__ dec,
+                      float* __restrict__ state_out, int nc, int H, int P, int N,
+                      int P16, int N16) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int e = kPassE * (blockIdx.x * kPassThreads + threadIdx.x);  // first entry
+  const int PN = P16 * N16;
+  const bool valid = e < PN;
+  const int part = (e & 7) / kPassE;  // this thread's share of its group of 8
+  const long long cstride = static_cast<long long>(H) * PN;  // one chunk
+  float* base = st + (static_cast<long long>(b) * nc * H + h) * PN + e;
+  // hi and lo of this thread's entries within the group's 32 bytes
+  char* grp = reinterpret_cast<char*>(base - (e & 7));
+  const float* db = dec + static_cast<long long>(b) * nc * H + h;
+  float s[kPassE];
+#pragma unroll
+  for (int k = 0; k < kPassE; ++k) s[k] = 0.f;
+  for (int c0 = 0; c0 < nc; c0 += kPassUnroll) {
+    float loc[kPassUnroll][kPassE], d[kPassUnroll];
+#pragma unroll
+    for (int u = 0; u < kPassUnroll; ++u) {
+      d[u] = 1.f;
+#pragma unroll
+      for (int k = 0; k < kPassE; ++k) loc[u][k] = 0.f;
+      if (valid && c0 + u < nc) {
+        const float2 v = *reinterpret_cast<const float2*>(base + (c0 + u) * cstride);
+        loc[u][0] = v.x;
+        loc[u][1] = v.y;
+        d[u] = db[(c0 + u) * H];
+      }
+    }
+    __syncwarp();  // every lane of a group has read it before any writes
+#pragma unroll
+    for (int u = 0; u < kPassUnroll; ++u) {
+      if (valid && c0 + u < nc) {
+        uint32_t hi, lo;
+        split2(s[0], s[1], hi, lo);
+        char* g = grp + (c0 + u) * cstride * 4;
+        *reinterpret_cast<uint32_t*>(g + 2 * kPassE * part) = hi;
+        *reinterpret_cast<uint32_t*>(g + 16 + 2 * kPassE * part) = lo;
+      }
+#pragma unroll
+      for (int k = 0; k < kPassE; ++k) s[k] = fmaf(d[u], s[k], loc[u][k]);
+    }
+    __syncwarp();  // this batch's writes before the next batch's reads
+  }
+  if (!valid) return;
+  const int pp = e / N16, n0 = e - pp * N16;
+  if (pp >= P) return;
+  float* so = state_out + ((static_cast<long long>(b) * H + h) * P + pp) * N;
+#pragma unroll
+  for (int k = 0; k < kPassE; ++k)
+    if (n0 + k < N) so[n0 + k] = s[k];
+}
 
 // ===========================================================================
 // float32: the CUDA-core kernel

@@ -1,10 +1,10 @@
 // Device pieces shared by the SSD chunk scan (ssd_chunk.cu, K6) and its
 // backward (ssd_chunk_bwd.cu, K6b): the launch parameters, the bfloat16
 // tile helpers (cp.async, ldmatrix, mma.sync m16n8k16, the two-term
-// split), the chunk's inclusive sum of dt a, and K6's passes 1 and 2 (each
-// chunk's own end state; the state entering each chunk, split for the
-// tensor cores), which the backward launches again to recompute the
-// entering states. ssd_chunk.cu's head comment describes them.
+// split), the chunk's inclusive sum of dt a, and K6's pass 1 (each chunk's
+// own end state), which the backward launches on dy and C for the state
+// cotangents (writing its chunk table). ssd_chunk.cu's head comment
+// describes the passes.
 
 #pragma once
 
@@ -36,6 +36,11 @@ constexpr int kPassUnroll = 16;  // chunks a pass-2 thread prefetches
 static_assert(kPassE == 2, "pass 2 moves its entries as float2 and bf16 pairs");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kOutMinBlocks = 2;  // pass-3 blocks per SM (registers <= 128)
+// The backward's chunk table, per (batch, chunk, head): cum (log2 units) and
+// dt of the chunk's kQc steps, then the reverse pass's kDotParts partial
+// sums of <g, s_in> (ssd_chunk_bwd.cu).
+constexpr int kDotParts = 32;
+constexpr int kTab = 2 * kQc + kDotParts;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -154,7 +159,9 @@ __device__ __forceinline__ float chunk_cumsum(const float* dtb, long long dt_ss,
 // local[p, n] = sum_j (wk_j x_j[p]) B_j[n]. With kCot (the backward's
 // state cotangents, ssd_chunk_bwd.cu) the same product of dy and C with
 // wk_i = exp(cum_i): D[p, n] = sum_i exp(cum_i) dy_i[p] C_i[n] (x and B
-// are then dy and C, with their strides in p; dec is not written).
+// are then dy and C, with their strides in p), and `dec` is the chunk
+// table (B, nc, H, kTab) float32 instead: the chunk's cum (log2 units)
+// into its entries 0 .. kQc - 1 and dt into kQc .. 2 kQc - 1.
 template <int NB, bool kCot = false>
 __global__ void __launch_bounds__(kStateThreads)
 ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -182,6 +189,14 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   if (warp == 0) {
     const float end = chunk_cumsum(dt + b * p.dt_sb + t0 * p.dt_ss + h * p.dt_sh,
                                    p.dt_ss, rows, a[h], cum2, wk, nullptr, lane);
+    if (kCot) {
+      float* tab = dec + ((static_cast<long long>(b) * nc + c) * p.H + h) * kTab;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tab[4 * lane + e] = cum2[4 * lane + e];
+        tab[kQc + 4 * lane + e] = wk[4 * lane + e];
+      }
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {  // wk_j = exp(cum_end - cum_j) dt_j
       const int r = 4 * lane + e;
@@ -240,66 +255,6 @@ ssd_chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     *reinterpret_cast<float2*>(so + p0 * N16 + col) = make_float2(acc[n][0], acc[n][1]);
     *reinterpret_cast<float2*>(so + (p0 + 8) * N16 + col) = make_float2(acc[n][2], acc[n][3]);
   }
-}
-
-// Pass 2: the state entering each chunk. A thread owns kPassE consecutive
-// entries of a state row of (b, h), 8 / kPassE lanes one group of 8 (the
-// [8 x hi | 8 x lo] layout's unit); grid (entries / (kPassE kPassThreads),
-// H, B). Each batch of kPassUnroll chunks is loaded before the warp writes
-// into the same 32-byte groups (__syncwarp between).
-__global__ void __launch_bounds__(kPassThreads)
-ssd_state_pass_kernel(float* __restrict__ st, const float* __restrict__ dec,
-                      float* __restrict__ state_out, int nc, int H, int P, int N,
-                      int P16, int N16) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int e = kPassE * (blockIdx.x * kPassThreads + threadIdx.x);  // first entry
-  const int PN = P16 * N16;
-  const bool valid = e < PN;
-  const int part = (e & 7) / kPassE;  // this thread's share of its group of 8
-  const long long cstride = static_cast<long long>(H) * PN;  // one chunk
-  float* base = st + (static_cast<long long>(b) * nc * H + h) * PN + e;
-  // hi and lo of this thread's entries within the group's 32 bytes
-  char* grp = reinterpret_cast<char*>(base - (e & 7));
-  const float* db = dec + static_cast<long long>(b) * nc * H + h;
-  float s[kPassE];
-#pragma unroll
-  for (int k = 0; k < kPassE; ++k) s[k] = 0.f;
-  for (int c0 = 0; c0 < nc; c0 += kPassUnroll) {
-    float loc[kPassUnroll][kPassE], d[kPassUnroll];
-#pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
-      d[u] = 1.f;
-#pragma unroll
-      for (int k = 0; k < kPassE; ++k) loc[u][k] = 0.f;
-      if (valid && c0 + u < nc) {
-        const float2 v = *reinterpret_cast<const float2*>(base + (c0 + u) * cstride);
-        loc[u][0] = v.x;
-        loc[u][1] = v.y;
-        d[u] = db[(c0 + u) * H];
-      }
-    }
-    __syncwarp();  // every lane of a group has read it before any writes
-#pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
-      if (valid && c0 + u < nc) {
-        uint32_t hi, lo;
-        split2(s[0], s[1], hi, lo);
-        char* g = grp + (c0 + u) * cstride * 4;
-        *reinterpret_cast<uint32_t*>(g + 2 * kPassE * part) = hi;
-        *reinterpret_cast<uint32_t*>(g + 16 + 2 * kPassE * part) = lo;
-      }
-#pragma unroll
-      for (int k = 0; k < kPassE; ++k) s[k] = fmaf(d[u], s[k], loc[u][k]);
-    }
-    __syncwarp();  // this batch's writes before the next batch's reads
-  }
-  if (!valid) return;
-  const int pp = e / N16, n0 = e - pp * N16;
-  if (pp >= P) return;
-  float* so = state_out + ((static_cast<long long>(b) * H + h) * P + pp) * N;
-#pragma unroll
-  for (int k = 0; k < kPassE; ++k)
-    if (n0 + k < N) so[n0 + k] = s[k];
 }
 
 template <int NB>

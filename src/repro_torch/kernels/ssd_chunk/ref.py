@@ -7,7 +7,9 @@ for one sequence. ``ssd_chunk_ref`` is the plain version of K6's wider
 contract (batch, groups, final state) in the bfloat16 kernel's structure:
 chunk states from zero, the state passed from chunk to chunk, the output
 from the diagonal blocks and the incoming states, in float32.
-``ssd_chunk_bwd_ref`` is the plain version of its backward kernel (K6b):
+``ssd_chunk_states_ref`` gives the chunk states of its passes 1-2, which K6
+keeps for K6b. ``ssd_chunk_bwd_ref`` is the plain version of its backward
+kernel (K6b):
 the gradients of ``ssd_chunk_ref`` written out in the kernel's structure
 (a reverse pass over the chunks' state cotangents, then each chunk on its
 own), not by autograd. Both compute in float64 for float64 inputs, so that
@@ -134,6 +136,23 @@ def ssd_chunk_ref(x, dt, a, Bm, Cm, *, chunk: int = 128):
              * torch.exp(cum)[..., None])
     y = (y_diag + y_off).reshape(Bsz, nc * chunk, H, P)[:, :S]
     return y.to(x.dtype), s.reshape(Bsz, H, P, N)
+
+
+def ssd_chunk_states_ref(x, dt, a, Bm, Cm, *, chunk: int = 128):
+    """The chunk states ``ssd_chunk_ref``'s passes 1-2 form: (s_in (Bsz, nc,
+    H, P, N), the state entering each chunk, and the chunk decays
+    exp(cum_end) (Bsz, nc, H)), float32 (float64 for float64 inputs). K6
+    keeps these (split, and P and N padded to 16) for K6b when a gradient
+    follows (``ssd_chunk_kernel(..., keep=True)``)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Hg = H // G
+    nc = -(-S // chunk)
+    xf, dtf = _chunked(x, chunk, G, Hg, P), _chunked(dt, chunk, G, Hg)
+    cum, seg, _ = _decays(dtf * _wide(a).reshape(G, Hg), chunk)
+    s_in, _, decay, _ = _entering_states(xf * dtf[..., None], _chunked(Bm, chunk, G, N), seg,
+                                         cum)
+    return s_in.reshape(Bsz, nc, H, P, N), decay.reshape(Bsz, nc, H)
 
 
 def ssd_chunk_bwd_ref(x, dt, a, Bm, Cm, dy, dstate=None, *, chunk: int = 128):

@@ -299,11 +299,12 @@ def _kernel_path(monkeypatch):
         calls.append("K5b")
         return fa.flash_attention_bwd_ref(*args, **kw)
 
-    def k6(*args):
+    def k6(*args, keep=False):
         calls.append("K6")
-        return sc.ssd_chunk_ref(*args)
+        out = sc.ssd_chunk_ref(*args)
+        return (*out, None) if keep else out  # float32: K6 keeps no states
 
-    def k6b(*args):
+    def k6b(*args, kept=None):
         calls.append("K6b")
         return sc.ssd_chunk_bwd_ref(*args)
 

@@ -26,9 +26,14 @@
   gradient within 1e-4 of its largest entry) and against torch autograd
   of ``ssd_chunk_ref`` in float64, at S = 1, 37, 256 and 300, one and two
   groups, P 48 and 64, N 16, 24 and 128, zero-dt rows, steep decay and a
-  final-state cotangent; ``kernel.bwd_plan``'s grids and scratch; the
-  autograd seam (a gradient call runs K6 then K6b, a call without one K6
-  alone), with the plain versions stood in.
+  final-state cotangent; ``kernel.bwd_plan``'s grids, ring and scratch; a
+  numpy mirror of the bfloat16 K6b's roundings (``_emulate_bwd``: K6's
+  states kept split, the reverse pass's bf16 images, W and R rounded once,
+  x and dy scaled then rounded) held against the plain backward; the six
+  TMA maps of its chunk pass against a numpy TMA emulation; the autograd
+  seam (a gradient call runs K6, keeping its chunk states, then K6b on
+  them; a call without one K6 alone, keeping nothing; under checkpointing
+  the recompute's states reach K6b), with the plain versions stood in.
 
 The CUDA kernels run only on the card (``chip_smoke.py``'s ``lm_kernels``).
 """
@@ -51,14 +56,20 @@ from repro_torch.kernels.ssd_chunk import (
     ssd_chunk_kernel,
     ssd_chunk_ref,
     ssd_chunk_scan,
+    ssd_chunk_states_ref,
     ssd_ref,
 )
 from repro_torch.kernels.ssd_chunk.kernel import (
     CHUNK,
     CHUNK_F32,
+    DOT_PARTS,
     HEADS_PER_BLOCK,
+    TAB,
+    bwd_maps,
     bwd_plan,
     chunk_plan,
+    tma_operand,
+    tma_ready,
 )
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -306,6 +317,60 @@ def _split(a):
     return hi, _bf16(a - hi)
 
 
+def _tile(t, b, t0, rows, cols, g=None, h=None):
+    """Rows t0 .. t0 + rows of (b, group g or head h) of a (Bsz, S, ., n)
+    array as a (CHUNK, cols) float64 tile, zeros past the rows and columns."""
+    out = np.zeros((CHUNK, cols), np.float64)
+    v = t[b, t0:t0 + rows, g if h is None else h]
+    out[:rows, :v.shape[-1]] = v
+    return out
+
+
+def _cumsum2(dt, a, b, t0, rows, h):
+    """A chunk's inclusive sum of dt a in log2 units (float32) and its dt."""
+    d = np.zeros(CHUNK, np.float32)
+    d[:rows] = dt[b, t0:t0 + rows, h]
+    return np.cumsum(d * np.float32(a[h])) * np.float32(1.4426950408889634), d
+
+
+def _emulate_states(x, dt, a, Bm):
+    """K6's passes 1-2 as ``_emulate_kernel`` mirrors them: each chunk's
+    own end state from zero with wk o x in two bf16 terms, then the state
+    entering each chunk in float32, kept split into its bf16 terms. Returns
+    (hi, lo) (Bsz, nc, H, P16, N16), the chunk decays (Bsz, nc, H) and the
+    final state (Bsz, H, P16, N16)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    Hg = H // G
+    plan = chunk_plan(Bsz, S, H, G, P, N)
+    nc = plan["chunks"]
+    _, _, _, P16, N16 = plan["scratch"]
+    scratch = np.zeros(plan["scratch"], np.float64)
+    decay = np.zeros(plan["decay"], np.float64)
+    for b in range(Bsz):                                   # pass 1
+        for c in range(nc):
+            t0 = c * CHUNK
+            rows = min(CHUNK, S - t0)
+            for h in range(H):
+                cum2, d = _cumsum2(dt, a, b, t0, rows, h)
+                wk = d * np.exp2(cum2[-1] - cum2)
+                hi, lo = _split(_tile(x, b, t0, rows, P16, h=h) * wk[:, None])
+                bt = _tile(Bm, b, t0, rows, N16, g=h // Hg)
+                scratch[b, c, h] = hi.T.astype(np.float64) @ bt + lo.T.astype(np.float64) @ bt
+                decay[b, c, h] = np.exp2(cum2[-1])
+    s_hi = np.zeros(plan["scratch"], np.float32)            # pass 2
+    s_lo = np.zeros(plan["scratch"], np.float32)
+    state = np.zeros((Bsz, H, P16, N16))
+    for b in range(Bsz):
+        for h in range(H):
+            s = np.zeros((P16, N16), np.float32)
+            for c in range(nc):
+                s_hi[b, c, h], s_lo[b, c, h] = _split(s)
+                s = (np.float32(decay[b, c, h]) * s + scratch[b, c, h]).astype(np.float32)
+            state[b, h] = s
+    return s_hi, s_lo, decay, state
+
+
 def _emulate_kernel(x, dt, a, Bm, Cm):
     """numpy mirror of ``csrc/ssd_chunk.cu``'s bfloat16 path, pass by pass:
     chunk states from zero with wk o x in two bf16 terms; the state pass
@@ -322,44 +387,16 @@ def _emulate_kernel(x, dt, a, Bm, Cm):
     plan = chunk_plan(Bsz, S, H, G, P, N)
     nc, per, tiles = plan["chunks"], plan["heads_per_block"], plan["head_tiles"]
     _, _, _, P16, N16 = plan["scratch"]
-    log2e = np.float32(1.4426950408889634)
-
-    def tile(t, b, t0, rows, cols, g=None, h=None):
-        out = np.zeros((CHUNK, cols), np.float64)
-        v = t[b, t0:t0 + rows, g if h is None else h]
-        out[:rows, :v.shape[-1]] = v
-        return out
+    tile = _tile
 
     def cumsum2(b, t0, rows, h):
-        d = np.zeros(CHUNK, np.float32)
-        d[:rows] = dt[b, t0:t0 + rows, h]
-        return np.cumsum(d * np.float32(a[h])) * log2e, d
+        return _cumsum2(dt, a, b, t0, rows, h)
 
-    scratch = np.zeros(plan["scratch"], np.float64)
-    decay = np.zeros(plan["decay"], np.float64)
-    for b in range(Bsz):                                   # pass 1
-        for c in range(nc):
-            t0 = c * CHUNK
-            rows = min(CHUNK, S - t0)
-            for h in range(H):
-                cum2, d = cumsum2(b, t0, rows, h)
-                wk = d * np.exp2(cum2[-1] - cum2)
-                hi, lo = _split(tile(x, b, t0, rows, P16, h=h) * wk[:, None])
-                bt = tile(Bm, b, t0, rows, N16, g=h // Hg)
-                scratch[b, c, h] = hi.T.astype(np.float64) @ bt + lo.T.astype(np.float64) @ bt
-                decay[b, c, h] = np.exp2(cum2[-1])
-    s_in = np.zeros((Bsz, nc, H, P16, 2 * N16))              # pass 2
-    state = np.zeros((Bsz, H, P16, N16))
-    for b in range(Bsz):
-        for h in range(H):
-            s = np.zeros((P16, N16), np.float32)
-            for c in range(nc):
-                hi, lo = _split(s)
-                for q in range(N16 // 8):
-                    s_in[b, c, h, :, 16 * q:16 * q + 8] = hi[:, 8 * q:8 * q + 8]
-                    s_in[b, c, h, :, 16 * q + 8:16 * q + 16] = lo[:, 8 * q:8 * q + 8]
-                s = (np.float32(decay[b, c, h]) * s + scratch[b, c, h]).astype(np.float32)
-            state[b, h] = s
+    hi, lo, _, state = _emulate_states(x, dt, a, Bm)
+    s_in = np.zeros((Bsz, nc, H, P16, 2 * N16))
+    for q in range(N16 // 8):  # the [8 x hi | 8 x lo] layout
+        s_in[..., 16 * q:16 * q + 8] = hi[..., 8 * q:8 * q + 8]
+        s_in[..., 16 * q + 8:16 * q + 16] = lo[..., 8 * q:8 * q + 8]
     y = np.zeros((Bsz, S, H, P), np.float32)                # pass 3
     low = np.tril(np.ones((CHUNK, CHUNK), bool))
     tile_of = np.arange(CHUNK) // 16
@@ -427,11 +464,12 @@ def _kernel_stubs(monkeypatch):
 
     calls = []
 
-    def fwd(x, dt, a, Bm, Cm):
+    def fwd(x, dt, a, Bm, Cm, keep=False):
         calls.append("K6")
-        return ssd_chunk_ref(x, dt, a, Bm, Cm)
+        out = ssd_chunk_ref(x, dt, a, Bm, Cm)
+        return (*out, None) if keep else out  # float32: K6 keeps no states
 
-    def bwd(*args):
+    def bwd(*args, kept=None):
         calls.append("K6b")
         return ssd_chunk_bwd_ref(*args)
 
@@ -605,8 +643,12 @@ def test_bwd_ref_keeps_the_kernel_dtypes_and_is_chunk_free():
 @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_bwd_plan_covers_every_chunk_and_head_once(shape, dtype):
     """K6b's grids: every (batch, chunk, head) in exactly one block of the
-    dx and dB / dC passes (the float32 kernel: every (batch, head) in one
-    block, walking every chunk); the scratch shapes and their bytes."""
+    chunk pass (bfloat16: a tile of ``heads_per_block`` heads; float32:
+    every (batch, head) in one block, walking every chunk); the launches in
+    order (one chunk kernel at N16 = 16, two at 128), the ring's stages and
+    each instance's shared memory within the card's 227 KB; the scratch
+    shapes, dtypes and bytes (bfloat16: K6's kept states and decays, in
+    the shapes K6's plan gives them, are read and not allocated)."""
     Bsz, S, H, G, P, N = shape
     dt = getattr(torch, dtype)
     plan = bwd_plan(*shape, dt)
@@ -615,26 +657,371 @@ def test_bwd_plan_covers_every_chunk_and_head_once(shape, dtype):
     assert nc * chunk >= S > (nc - 1) * chunk
     per, Hg = plan["heads_per_block"], H // G
     assert tiles == -(-Hg // per) and tiles * Bsz * G <= 65535 * 65535
-    name = "dx" if dt == torch.bfloat16 else "f32"
-    grid = plan["grids"][name]
+    bf = dt == torch.bfloat16
+    P16, N16 = -(-P // 16) * 16, -(-N // 16) * 16
+    if bf:
+        names = (["chunk"] if N16 <= 16 else ["chunk_dx", "chunk_dbc"])
+        assert list(plan["grids"]) == ["cotan", "reverse_pass"] + names + ["sum"]
+        grid = plan["grids"][names[0]]
+        assert all(plan["grids"][n] == (nc, tiles, Bsz * G) for n in names)
+        assert plan["stages"] == 2 and set(plan["smem"]) == set(names)
+        assert all(v <= 232448 for v in plan["smem"].values())
+        rev = plan["grids"]["reverse_pass"]
+        assert rev == (plan["reverse_blocks"], H, Bsz) and rev[0] <= DOT_PARTS
+        assert rev[0] * 2 * 128 >= P16 * N16 > (rev[0] - 1) * 2 * 128
+        assert plan["grids"]["cotan"] == (nc, H, Bsz)
+    else:
+        grid = plan["grids"]["f32"]
+        assert list(plan["grids"]) == ["f32", "sum"] and per == HEADS_PER_BLOCK
     seen = np.zeros((Bsz, nc, H), np.int64)
-    zs = grid[2] if dt == torch.bfloat16 else grid[1]
+    zs = grid[2] if bf else grid[1]
     for z in range(zs):
         b, g = divmod(z, G)
-        for ht in range(grid[1] if dt == torch.bfloat16 else grid[0]):
+        for ht in range(grid[1] if bf else grid[0]):
             h0, nh = g * Hg + ht * per, min(per, Hg - ht * per)
             assert nh >= 1
             seen[b, :, h0:h0 + nh] += 1
     assert (seen == 1).all()
-    if dt == torch.bfloat16:
-        assert grid == plan["grids"]["dbc"] == (nc, tiles, Bsz * G)
-        assert plan["states"] == plan["cotan"] == chunk_plan(*shape)["scratch"]
-        assert plan["decay"] == (Bsz, nc, H) and plan["part_a"] == (Bsz, nc, H)
+    st = (Bsz, nc, H, P16, N16)
+    if bf:
+        assert plan["cotan"] == st == chunk_plan(*shape)["scratch"]
+        assert plan["images"] == (2,) + st and plan["dtypes"]["images"] == torch.bfloat16
+        assert plan["table"] == (Bsz, nc, H, TAB) and TAB == 2 * CHUNK + DOT_PARTS
+        assert plan["part_a"] == (Bsz, nc, H) == chunk_plan(*shape)["decay"]
+        assert plan["states"] is plan["decay"] is None
     else:
         assert plan["states"] == (Bsz, nc, H, P, N) and plan["part_a"] == (Bsz, 1, H)
-        assert plan["cotan"] is None and plan["decay"] is None
+        assert all(plan[k] is None for k in ("cotan", "decay", "table", "images"))
     assert plan["part_b"] == plan["part_c"] == (tiles, Bsz, S, G, N)
-    assert plan["grids"]["sum"] == (-(-Bsz * S * G * N // 256),)
-    shapes = [plan[k] for k in ("states", "cotan", "decay", "final", "part_b",
-                                "part_c", "part_a") if plan[k] is not None]
-    assert plan["scratch_bytes"] == sum(4 * int(np.prod(v)) for v in shapes)
+    assert plan["grids"]["sum"] == (-(-(Bsz * S * G * N + H) // 256),)
+    names = ("states", "decay", "cotan", "table", "images", "part_b", "part_c", "part_a")
+    assert plan["scratch_bytes"] == sum(plan["dtypes"][k].itemsize * int(np.prod(plan[k]))
+                                        for k in names if plan[k] is not None)
+
+
+KEPT_FAULTS = ("none", "one_chunk_short", "bf16_states", "strided_states", "swapped")
+
+
+@pytest.mark.parametrize("fault", KEPT_FAULTS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_takes_only_k6s_kept_states_of_these_inputs(shape, fault):
+    """A bfloat16 K6b call reads K6's kept (scratch, decay) in the shapes
+    ``chunk_plan`` gives them (float32, contiguous, on x's device), and
+    refuses anything else: a chunk short, another dtype, a strided view,
+    the pair swapped (meta tensors: nothing is allocated)."""
+    from repro_torch.kernels.ssd_chunk.kernel import _check_kept
+
+    cp = chunk_plan(*shape)
+    st, dec = cp["scratch"], cp["decay"]
+    if fault == "one_chunk_short":
+        st = (st[0], st[1] - 1) + st[2:] if st[1] > 1 else st[:-1] + (st[-1] - 16,)
+    states = torch.empty(st, dtype=torch.bfloat16 if fault == "bf16_states" else torch.float32,
+                         device="meta")
+    if fault == "strided_states":
+        states = torch.empty(st[:-2] + (st[-1], st[-2]), device="meta").transpose(-1, -2)
+    decay = torch.empty(dec, device="meta")
+    kept = (decay, states) if fault == "swapped" else (states, decay)
+    plan = bwd_plan(*shape)
+    if fault == "none":
+        _check_kept(kept, plan, torch.device("meta"))
+    else:
+        with pytest.raises(ValueError, match="kept must be K6's"):
+            _check_kept(kept, plan, torch.device("meta"))
+
+
+def test_bwd_kernel_refuses_a_bf16_call_without_k6s_states():
+    """K6b's bfloat16 path has no recompute of K6's states: a call without
+    ``kept`` raises, as does a float32 call with it."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_kernel
+
+    args = [torch.as_tensor(v) for v in _batched(1, 40, 4, 1, 16, 16, seed=3)]
+    bf = [args[0].bfloat16(), args[1], args[2], args[3].bfloat16(), args[4].bfloat16()]
+    with pytest.raises(ValueError, match="kept"):
+        ssd_chunk_bwd_kernel(*bf, torch.zeros_like(bf[0]))
+    with pytest.raises(ValueError, match="kept"):
+        ssd_chunk_bwd_kernel(*args, torch.zeros_like(args[0]), kept=(args[0], args[1]))
+
+
+def _emulate_bwd(x, dt, a, Bm, Cm, dy, dstate):
+    """numpy mirror of ``csrc/ssd_chunk_bwd.cu``'s bfloat16 path and of its
+    roundings: K6's states (``_emulate_states``, kept split); D_c from dy
+    with exp(cum_i) in two bf16 terms (K6's pass 1); the reverse pass in
+    float32, writing g_c+1 rounded to bf16 and s_in's hi terms as the
+    images and <g, s_in> with s_in as hi + lo; the chunk pass over
+    ``bwd_plan``'s head tiles: W = C B^T o L o dt and R = dy x^T o L o dt
+    rounded once, dx = e dt B g^T + W^T dy, dB += R^T C + bf16(e dt x) g,
+    dC += R B + bf16(exp(cum) dy) s_in, O from C s_in^T, K's sums in
+    float; dB and dC summed per tile and then over the tiles, outputs
+    rounded to bf16. Products accumulate in float64."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    Hg = H // G
+    plan = bwd_plan(Bsz, S, H, G, P, N)
+    nc, hpb, tiles = plan["chunks"], plan["heads_per_block"], plan["head_tiles"]
+    _, _, _, P16, N16 = plan["cotan"]
+    s_hi, s_lo, decay, _ = _emulate_states(x, dt, a, Bm)
+    D = np.zeros(plan["cotan"], np.float32)                  # 3. the state cotangents
+    for b in range(Bsz):
+        for c in range(nc):
+            t0 = c * CHUNK
+            rows = min(CHUNK, S - t0)
+            for h in range(H):
+                cum2, _ = _cumsum2(dt, a, b, t0, rows, h)
+                hi, lo = _split(_tile(dy, b, t0, rows, P16, h=h) * np.exp2(cum2)[:, None])
+                ct = _tile(Cm, b, t0, rows, N16, g=h // Hg)
+                D[b, c, h] = hi.T.astype(np.float64) @ ct + lo.T.astype(np.float64) @ ct
+    g_img = np.zeros(plan["cotan"], np.float32)               # 4. the reverse pass
+    dots = np.zeros((Bsz, nc, H))
+    for b in range(Bsz):
+        for h in range(H):
+            gv = np.zeros((P16, N16), np.float32)
+            if dstate is not None:
+                gv[:P, :N] = dstate[b, h]
+            for c in reversed(range(nc)):
+                g_img[b, c, h] = _bf16(gv)
+                dots[b, c, h] = (gv.astype(np.float64) * (s_hi[b, c, h].astype(np.float64)
+                                                          + s_lo[b, c, h])).sum()
+                gv = (np.float32(decay[b, c, h]) * gv + D[b, c, h]).astype(np.float32)
+    dx = np.zeros((Bsz, S, H, P), np.float32)                # 5. the chunks
+    ddt = np.zeros((Bsz, S, H), np.float32)
+    da = np.zeros(H)
+    dB = np.zeros((tiles, Bsz, S, G, N))
+    dC = np.zeros((tiles, Bsz, S, G, N))
+    low = np.tril(np.ones((CHUNK, CHUNK), bool))
+    strict = np.tril(np.ones((CHUNK, CHUNK)), -1)
+    for z in range(Bsz * G):
+        b, g = divmod(z, G)
+        for c in range(nc):
+            t0 = c * CHUNK
+            rows = min(CHUNK, S - t0)
+            ct, bt = _tile(Cm, b, t0, rows, N16, g=g), _tile(Bm, b, t0, rows, N16, g=g)
+            for ht in range(tiles):
+                pb, pc = np.zeros((CHUNK, N16)), np.zeros((CHUNK, N16))
+                for h in range(g * Hg + ht * hpb, g * Hg + min(Hg, (ht + 1) * hpb)):
+                    cum2, d = _cumsum2(dt, a, b, t0, rows, h)
+                    xt, yt = _tile(x, b, t0, rows, P16, h=h), _tile(dy, b, t0, rows, P16, h=h)
+                    L = np.where(low, np.exp2(np.minimum(cum2[:, None] - cum2[None, :], 0.0)),
+                                 0.0)
+                    CB, DX = ct @ bt.T, yt @ xt.T
+                    K = CB * DX * L
+                    W, R = _bf16(CB * L * d[None, :]), _bf16(DX * L * d[None, :])
+                    gs = g_img[b, c, h].astype(np.float64)
+                    ss = s_hi[b, c, h].astype(np.float64)
+                    e, ec = np.exp2(cum2[-1] - cum2), np.exp2(cum2)
+                    ed = e * d
+                    V2 = bt @ gs.T
+                    xg = (xt * V2).sum(1)
+                    dxh = ed[:, None] * V2 + W.T.astype(np.float64) @ yt
+                    pb += R.T.astype(np.float64) @ ct + _bf16(ed[:, None] * xt) @ gs
+                    pc += R.astype(np.float64) @ bt + _bf16(ec[:, None] * yt) @ ss
+                    O = ec * ((ct @ ss.T) * yt).sum(1)
+                    rs, cs = (K * strict * d[None, :]).sum(1), (K * strict).sum(0)
+                    T = ed * xg
+                    dcum = rs - d * cs + O - T
+                    dcum[-1] += T.sum() + np.exp2(cum2[-1]) * dots[b, c, h]
+                    dadt = np.cumsum(dcum[::-1])[::-1]
+                    dx[b, t0:t0 + rows, h] = dxh[:rows, :P]
+                    ddt[b, t0:t0 + rows, h] = (cs + np.diag(K) + e * xg + a[h] * dadt)[:rows]
+                    da[h] += (d * dadt).sum()
+                dB[ht, b, t0:t0 + rows, g] = pb[:rows, :N].astype(np.float32)
+                dC[ht, b, t0:t0 + rows, g] = pc[:rows, :N].astype(np.float32)
+    return (_bf16(dx), ddt, da.astype(np.float32), _bf16(dB.sum(0)), _bf16(dC.sum(0)))
+
+
+# (name, Bsz, S, H, G, P, N, dt_scale, final-state cotangent)
+EMULATE_BWD_CASES = [
+    ("s1_n128", 2, 1, 4, 1, 64, 128, 1.0, False),
+    ("s129_n16_state", 1, 129, 4, 1, 64, 16, 1.0, True),
+    ("s300_g2_p48_n128_state", 1, 300, 4, 2, 48, 128, 1.0, True),
+    ("s300_steep_n16", 1, 300, 4, 1, 64, 16, 10.0, False),
+    ("s129_g2_p40_n20_state", 1, 129, 6, 2, 40, 20, 1.0, True),
+]
+
+
+@pytest.mark.parametrize("case", EMULATE_BWD_CASES, ids=[c[0] for c in EMULATE_BWD_CASES])
+def test_bwd_kernel_mirror_matches_the_plain_backward(case):
+    """The K6b mirror on bfloat16 inputs (x, B, C and dy rounded) against
+    ``ssd_chunk_bwd_ref`` on the same values: each gradient within 2e-2 of
+    its largest entry, the bound ``chip_smoke.py`` holds the kernel to (its
+    roundings: one bf16 rounding of each float32 operand, bf16 outputs)."""
+    _, Bsz, S, H, G, P, N, scale, with_state = case
+    x, dt, a, Bm, Cm = _batched(Bsz, S, H, G, P, N, seed=S + N, dt_scale=scale)
+    x, Bm, Cm = _bf16(x), _bf16(Bm), _bf16(Cm)
+    rng = np.random.default_rng(S)
+    dy = _bf16(rng.standard_normal((Bsz, S, H, P)).astype(np.float32))
+    ds = rng.standard_normal((Bsz, H, P, N)).astype(np.float32) if with_state else None
+    if scale > 1:
+        assert np.cumsum(dt * a, axis=1)[:, :CHUNK].min() < -88.0  # steep
+    got = _emulate_bwd(x, dt, a, Bm, Cm, dy, ds)
+    want = ssd_chunk_bwd_ref(*map(torch.as_tensor, (x, dt, a, Bm, Cm, dy)),
+                             None if ds is None else torch.as_tensor(ds))
+    _hold(got, [w.numpy() for w in want], 2e-2)
+
+
+def test_a_gradient_call_keeps_k6_states_for_k6b_and_no_other_call_does(monkeypatch):
+    """``_SSDChunkFn`` asks K6 to keep its chunk states only when a
+    gradient follows, hands exactly those tensors to K6b, and lets them go
+    with the graph; under non-reentrant checkpointing (``remat``) the first
+    forward's states are dropped at once and the recompute's reach K6b. The
+    kept states, the plain version's passes 1-2 (``ssd_chunk_states_ref``),
+    equal what K6's passes 1-2 form in the kernel's mirror (hi + lo), and
+    the final state follows from the last of them."""
+    import gc
+    import weakref
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    calls, kept_refs, got_kept = [], [], []
+
+    def fwd(x, dt, a, Bm, Cm, keep=False):
+        calls.append(("K6", keep))
+        y, st = ssd_chunk_ref(x, dt, a, Bm, Cm)
+        if not keep:
+            return y, st
+        kept = ssd_chunk_states_ref(*(t.detach() for t in (x, dt, a, Bm, Cm)))
+        kept_refs.append([weakref.ref(t) for t in kept])
+        return y, st, kept
+
+    def bwd(x, dt, a, Bm, Cm, dy, dstate, kept=None):
+        calls.append(("K6b", kept is not None))
+        got_kept.append([weakref.ref(t) for t in kept])
+        return ssd_chunk_bwd_ref(x, dt, a, Bm, Cm, dy, dstate)
+
+    monkeypatch.setattr(ssd_ops, "use_kernel", lambda mode, x: mode != "ref")
+    monkeypatch.setattr(ssd_ops, "_FWD", fwd)
+    monkeypatch.setattr(ssd_ops, "_BWD", bwd)
+    args = [torch.as_tensor(v) for v in _batched(1, 150, 4, 2, 16, 16, seed=9)]
+    with torch.no_grad():
+        ssd_ops.ssd_chunk_scan(*(t.clone().requires_grad_() for t in args))
+    ssd_ops.ssd_chunk_scan(*args)
+    assert calls == [("K6", False)] * 2 and not kept_refs
+
+    calls.clear()
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, _ = ssd_ops.ssd_chunk_scan(*leaves)
+    assert calls == [("K6", True)] and all(r() is not None for r in kept_refs[0])
+    y.sum().backward()
+    assert calls == [("K6", True), ("K6b", True)]
+    assert [r() for r in got_kept[0]] == [r() for r in kept_refs[0]]
+    del y
+    gc.collect()
+    assert all(r() is None for r in kept_refs[0])
+
+    calls.clear()
+    kept_refs.clear()
+    got_kept.clear()
+    leaves = [t.clone().requires_grad_() for t in args]
+    y = checkpoint(lambda *t: ssd_ops.ssd_chunk_scan(*t)[0], *leaves, use_reentrant=False)
+    gc.collect()
+    assert calls == [("K6", True)] and all(r() is None for r in kept_refs[0])
+    y.sum().backward()
+    assert calls == [("K6", True), ("K6", True), ("K6b", True)]
+    assert [r() for r in got_kept[0]] == [r() for r in kept_refs[1]]
+
+    x, dt, a, Bm, Cm = args
+    xb, Bb = _bf16(x.numpy()), _bf16(Bm.numpy())
+    s_in, decay = ssd_chunk_states_ref(torch.as_tensor(xb), dt, a, torch.as_tensor(Bb), Cm)
+    hi, lo, mdecay, mstate = _emulate_states(xb, dt.numpy(), a.numpy(), Bb)
+    mirror = (hi.astype(np.float64) + lo)[..., :16, :16]
+    scale = np.abs(s_in.numpy()).max()
+    assert np.abs(mirror - s_in.numpy()).max() <= 1e-3 * scale
+    np.testing.assert_allclose(mdecay, decay.numpy(), rtol=1e-5)
+    _, state = ssd_chunk_ref(torch.as_tensor(xb), dt, a, torch.as_tensor(Bb), Cm)
+    assert np.abs(mstate[..., :16, :16] - state.numpy()).max() <= 1e-3 * np.abs(state.numpy()).max()
+
+
+def _storage_u16(t):
+    """``t``'s whole storage as uint16 words (bf16 bits), cached per storage."""
+    key = t.untyped_storage().data_ptr()
+    if key not in _STORAGE:
+        _STORAGE[key] = np.frombuffer(bytes(t.untyped_storage()), np.uint16).copy()
+    return _STORAGE[key]
+
+
+_STORAGE = {}
+
+
+def _tma_box(t, args, coords):
+    """numpy emulation of a TMA box load of the map ``args`` (dims, byte
+    strides of dims 1-3, box) over ``t``'s storage (bf16, read from its
+    first element) at ``coords``: a (box3, box2, box1, box0) array, zeros
+    out of bounds."""
+    dims, strides, box = args[:4], args[4:7], args[7:]
+    store = _storage_u16(t)
+    base = t.storage_offset()
+    out = np.zeros(tuple(reversed(box)), np.float32)
+    for i3 in range(box[3]):
+        for i2 in range(box[2]):
+            for i1 in range(box[1]):
+                c = [coords[1] + i1, coords[2] + i2, coords[3] + i3]
+                if any(v >= n for v, n in zip(c, dims[1:])):
+                    continue
+                row = base + sum(v * s // 2 for v, s in zip(c, strides))
+                n0 = min(box[0], dims[0] - coords[0])
+                if n0 <= 0:
+                    continue
+                vals = store[row + coords[0]:row + coords[0] + n0].astype(np.uint32)
+                out[i3, i2, i1, :n0] = (vals << 16).view(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("P,N,G,H", [(64, 16, 1, 3), (64, 128, 1, 2), (40, 20, 2, 4)],
+                         ids=["hymba_widths", "mamba2_widths", "p40_n20_g2"])
+def test_bwd_tensor_maps_read_each_operand_tile(P, N, G, H):
+    """K6b's six tensor maps (``bwd_maps``) against a numpy TMA emulation:
+    x and dy (views of the model's fused (B, S, H P + 2 G N) projection, as
+    the mixer passes them) give each head's CHUNK rows of a chunk, B and C
+    each group's, the images each (batch, chunk, head)'s P16 x N16 state,
+    zero-padded to 64 columns and past S; operands TMA cannot read in place
+    (a row start off 16 bytes) are copied with padded rows, the rest read in
+    place."""
+    Bsz, S = 2, 150
+    _STORAGE.clear()
+    rng = np.random.default_rng(P + N)
+    xbc = torch.as_tensor(rng.standard_normal((Bsz, S, H * P + 2 * G * N)).astype(np.float32))
+    xbc = xbc.bfloat16()
+    x, bm, cm = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, bm, cm = x.reshape(Bsz, S, H, P), bm.reshape(Bsz, S, G, N), cm.reshape(Bsz, S, G, N)
+    dy = torch.as_tensor(rng.standard_normal((Bsz, S, H, P)).astype(np.float32)).bfloat16()
+    plan = bwd_plan(Bsz, S, H, G, P, N)
+    nc = plan["chunks"]
+    ops = [tma_operand(t) for t in (x, dy, bm, cm)]
+    for t, o in zip((x, dy, bm, cm), ops):
+        assert torch.equal(o, t) and tma_ready(o)
+        assert (o.data_ptr() == t.data_ptr()) == tma_ready(t)
+    assert tma_ready(x) and tma_ready(dy)
+    images = torch.as_tensor(rng.standard_normal(plan["images"]).astype(np.float32)).bfloat16()
+    maps = bwd_maps(*ops, plan)
+    assert len(maps) == 6 and all(len(m) == 11 for m in maps)
+
+    def want(t, b, t0, k, c0):
+        w = np.zeros((CHUNK, 64), np.float32)
+        v = t[b, t0:t0 + CHUNK, k, c0:c0 + 64].float().numpy()
+        w[:v.shape[0], :v.shape[1]] = v
+        return w
+
+    for c in range(nc):
+        for b in range(Bsz):
+            for h in (0, H - 1):
+                for t, m in zip(ops[:2], maps[:2]):
+                    got = _tma_box(t, m, (0, c * CHUNK, h, b))[0, 0]
+                    np.testing.assert_array_equal(got, want(t, b, c * CHUNK, h, 0))
+                for k in range(2):
+                    img = images[k]
+                    got = _tma_box(img[0, 0, 0, 0, 0:1], maps[4 + k],
+                                   (0, 0, h, b * nc + c))[0, 0]
+                    w = np.zeros((64, 64), np.float32)
+                    v = img[b, c, h].float().numpy()
+                    w[:v.shape[0], :min(64, v.shape[1])] = v[:, :64]
+                    np.testing.assert_array_equal(got, w)
+                    if v.shape[1] > 64:  # the second 64 columns
+                        got = _tma_box(img[0, 0, 0, 0, 0:1], maps[4 + k],
+                                       (64, 0, h, b * nc + c))[0, 0]
+                        np.testing.assert_array_equal(got[:, :v.shape[1] - 64], v[:, 64:])
+            for g in range(G):
+                for t, m in zip(ops[2:], maps[2:4]):
+                    for c0 in range(0, N, 64):
+                        got = _tma_box(t, m, (c0, c * CHUNK, g, b))[0, 0]
+                        np.testing.assert_array_equal(got, want(t, b, c * CHUNK, g, c0))
